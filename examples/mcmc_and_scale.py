@@ -4,9 +4,9 @@
    priors) — the reference's pssgp/experiments workflow, fully jitted.
 2. Four vmapped chains in parallel (``sample_chains``).
 3. The same model's likelihood evaluated with the time axis sharded over a
-   virtual 8-device mesh — the multi-chip path (set
+   virtual 8-device mesh — the multi-device path (set
    XLA_FLAGS=--xla_force_host_platform_device_count=8 before running to
-   simulate a pod slice on CPU).
+   simulate eight devices on CPU).
 
 Run:  XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python examples/mcmc_and_scale.py
@@ -25,16 +25,12 @@ import numpy as np
 def main():
     import jax
 
-    # f64 only off-TPU (TPUs lack f64 linear algebra); f32 is fine on chip.
-    if jax.default_backend() != "tpu":
-        jax.config.update("jax_enable_x64", True)
+    jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
     import parallel_gps_tpu as pgt
     from parallel_gps_tpu.inference import hmc_kernel, sample_chains
 
-    # Vmapped chains dispatch to the batched-sublane fused kernels on TPU
-    # via custom_vmap (kalman/pallas_scan.py) — no engine flags needed.
     from parallel_gps_tpu.inference.optim import make_log_posterior
     from parallel_gps_tpu.models.params import unconstrain
     from parallel_gps_tpu.toymodels import obs_noise, sinu

@@ -3,8 +3,8 @@ L-BFGS MAP fit of Matern32 hyperparameters on the last n ∈ {1200, 2200, 3200}
 months, then posterior smoothing prediction on a 30× dense interpolation grid
 (up to 96,000 points).
 
-TPU-first: the whole L-BFGS loop runs jitted on-device (optax) instead of a
-scipy host loop.
+The whole L-BFGS loop runs jitted on-device (optax) instead of a scipy host
+loop.
 
 Usage::
 

@@ -134,7 +134,7 @@ def fit_adam(
 
 def fit_lbfgs(model, n_iters: int = 100, trainable=None, priors: dict | None = None):
     """L-BFGS (with zoom linesearch) on negative LML (or negative log
-    posterior with ``priors`` — MAP), fully on-device — the TPU-native
+    posterior with ``priors`` — MAP), fully on-device — the jitted
     replacement for the reference's scipy host loop
     (pssgp/experiments/sunspot/map.py:81)."""
     loss, u0 = make_loss(model)

@@ -3,7 +3,7 @@
 Implements the filtering/smoothing element algebra of Särkkä &
 García-Fernández, "Temporal Parallelization of Bayesian Smoothers"
 (arXiv 1905.13002), matching the reference semantics
-(pssgp/kalman/parallel.py) with TPU-first execution:
+(pssgp/kalman/parallel.py):
 
   - ``jax.lax.associative_scan`` (XLA-compiled Blelloch tree) instead of
     TFP's ``scan_associative``; no ``max_num_levels`` knob is needed — the
@@ -14,6 +14,9 @@ García-Fernández, "Temporal Parallelization of Bayesian Smoothers"
     reverse-mode AD is NaN-free.
   - All element construction and the log-likelihood are single vectorized
     passes over T (reference: parallel.py:135-151).
+  - Matrix products run at full float32 precision (``ops.linalg.mm``), so
+    this generic engine stays a faithful oracle on GPUs, whose default
+    float32 matmul may use TF32.
 
 Element types:
   filtering: (A, b, C, J, eta) per reference parallel.py:13-118;
@@ -27,7 +30,7 @@ import jax
 import jax.numpy as jnp
 from jax import Array
 
-from parallel_gps_tpu.ops.linalg import mvn_logpdf, solve_small, symmetrize
+from parallel_gps_tpu.ops.linalg import mm, mvn_logpdf, solve_small, symmetrize
 from parallel_gps_tpu.ops.scan import blocked_associative_scan
 from parallel_gps_tpu.types import LGSSM, LGSSMTL
 
@@ -47,7 +50,7 @@ class SmoothingElement(NamedTuple):
 
 
 def _mv(M: Array, v: Array) -> Array:
-    return (M @ v[..., None])[..., 0]
+    return mm(M, v[..., None])[..., 0]
 
 
 def filtering_identity(d: int, dtype) -> FilteringElement:
@@ -91,16 +94,16 @@ def make_filtering_elements(
     y = jnp.where(mask[:, None], jnp.nan_to_num(ys), 0.0)  # (T, m)
 
     # --- generic elements, all steps at once -------------------------------
-    HQ = H[None] @ Qs  # (T, m, d)
-    S = HQ @ H.T + R  # (T, m, m) innovation covariance
+    HQ = mm(H[None], Qs)  # (T, m, d)
+    S = mm(HQ, H.T) + R  # (T, m, m) innovation covariance
     Kt = solve_small(S, HQ)  # (T, m, d) == S⁻¹ H Q
-    HF = H[None] @ Fs  # (T, m, d)
+    HF = mm(H[None], Fs)  # (T, m, d)
 
-    A_ok = Fs - jnp.swapaxes(Kt, -1, -2) @ HF  # (I - Kᵀ H) F
+    A_ok = Fs - mm(jnp.swapaxes(Kt, -1, -2), HF)  # (I - Kᵀ H) F
     b_ok = _mv(jnp.swapaxes(Kt, -1, -2), y)  # (T, d)
-    C_ok = Qs - jnp.swapaxes(Kt, -1, -2) @ HQ
+    C_ok = Qs - mm(jnp.swapaxes(Kt, -1, -2), HQ)
     eta_ok = _mv(jnp.swapaxes(HF, -1, -2), solve_small(S, y[..., None])[..., 0])
-    J_ok = jnp.swapaxes(HF, -1, -2) @ solve_small(S, HF)  # (T, d, d)
+    J_ok = mm(jnp.swapaxes(HF, -1, -2), solve_small(S, HF))  # (T, d, d)
 
     # NaN (missing-observation) variant: pure prediction
     # (reference: parallel.py:46-53).
@@ -114,14 +117,14 @@ def make_filtering_elements(
 
     # --- first element: filter step against (m0, P0) -----------------------
     # (reference: parallel.py:13-43)
-    S1 = H @ P0 @ H.T + R  # (m, m)
-    K1t = solve_small(S1, H @ P0)  # (m, d)
-    b0_ok = m0 + _mv(K1t.T, y[0] - H @ m0)
-    C0_ok = P0 - K1t.T @ S1 @ K1t
-    S0 = H @ Qs[0] @ H.T + R
-    HF0 = H @ Fs[0]
-    eta0_ok = (HF0.T @ solve_small(S0, y[0][:, None]))[:, 0]
-    J0_ok = HF0.T @ solve_small(S0, HF0)
+    S1 = mm(mm(H, P0), H.T) + R  # (m, m)
+    K1t = solve_small(S1, mm(H, P0))  # (m, d)
+    b0_ok = m0 + _mv(K1t.T, y[0] - _mv(H, m0))
+    C0_ok = P0 - mm(mm(K1t.T, S1), K1t)
+    S0 = mm(mm(H, Qs[0]), H.T) + R
+    HF0 = mm(H, Fs[0])
+    eta0_ok = mm(HF0.T, solve_small(S0, y[0][:, None]))[:, 0]
+    J0_ok = mm(HF0.T, solve_small(S0, HF0))
 
     ok0 = mask[0]
     A0 = jnp.zeros((d, d), dtype)
@@ -153,33 +156,51 @@ def filtering_operator(
     I = jnp.eye(d, dtype=A1.dtype)
 
     # U = A2 (I + C1 J2)⁻¹, via the transposed solve.
-    M1 = I + C1 @ J2
+    M1 = I + mm(C1, J2)
     U = jnp.swapaxes(
         solve_small(jnp.swapaxes(M1, -1, -2), jnp.swapaxes(A2, -1, -2)),
         -1,
         -2,
     )
-    A = U @ A1
+    A = mm(U, A1)
     b = _mv(U, b1 + _mv(C1, eta2)) + b2
-    C = U @ C1 @ jnp.swapaxes(A2, -1, -2) + C2
+    C = mm(mm(U, C1), jnp.swapaxes(A2, -1, -2)) + C2
 
     # V = (I + J2 C1)⁻ᵀ A1, i.e. Vᵀ = A1ᵀ (I + J2 C1)⁻¹.
-    M2 = I + J2 @ C1
+    M2 = I + mm(J2, C1)
     V = solve_small(jnp.swapaxes(M2, -1, -2), A1)
     eta = _mv(jnp.swapaxes(V, -1, -2), eta2 - _mv(J2, b1)) + eta1
-    J = jnp.swapaxes(V, -1, -2) @ J2 @ A1 + J1
+    J = mm(mm(jnp.swapaxes(V, -1, -2), J2), A1) + J1
 
     return FilteringElement(
         A=A, b=b, C=symmetrize(C), J=symmetrize(J), eta=eta
     )
 
 
-def _use_timelast(lgssm: LGSSM, engine: str) -> bool:
+_ENGINES = ("auto", "timelast", "generic")
+
+
+def _use_timelast(lgssm, engine: str) -> bool:
+    """Resolve ``engine`` for one call: True → time-last, False → generic.
+
+    An LGSSMTL input always takes the time-last engine (it covers every
+    state dim through Schur-recursed inverses).  Explicit requests that the
+    chosen path cannot honour raise instead of silently downgrading."""
+    if engine not in _ENGINES:
+        raise ValueError(f"engine must be one of {_ENGINES}, got {engine!r}")
+    if isinstance(lgssm, LGSSMTL):
+        if engine == "generic":
+            raise ValueError(
+                "engine='generic' (the reference-literal oracle) operates on"
+                " the LGSSM (time-first) layout only; convert explicitly, e.g."
+                " LGSSM(P0, moveaxis(Fs, -1, 0), moveaxis(Qs, -1, 0), H, R)"
+            )
+        return True
     if lgssm.H.shape[0] > 1:
         # Multi-dim observations (m > 1): only the generic engine carries
-        # the (m, m)-solve algebra; the TL/Pallas fast paths are scalar-
+        # the (m, m)-solve algebra; the time-last engine is scalar-
         # observation specialized (see types.LGSSM).
-        if engine in ("timelast", "pallas"):
+        if engine == "timelast":
             raise ValueError(
                 f"engine={engine!r} supports scalar observations only"
                 f" (H has {lgssm.H.shape[0]} rows); use engine='generic'"
@@ -189,27 +210,9 @@ def _use_timelast(lgssm: LGSSM, engine: str) -> bool:
         return True
     if engine == "generic":
         return False
-    # auto: the time-last SoA engine covers d ≤ 3 (closed-form inverses) and
-    # is the TPU fast path; larger state dims use the generic layout.
+    # auto on the time-first layout: time-last for d ≤ 3 (closed-form
+    # inverses), generic layout for larger state dims.
     return lgssm.P0.shape[0] <= 3
-
-
-def _tl_pallas(lgssm, engine: str) -> bool:
-    """Resolve ``engine`` for an LGSSMTL input; explicit requests that the
-    time-last path cannot honor raise instead of silently downgrading."""
-    d = lgssm.P0.shape[0]
-    if engine == "generic":
-        raise ValueError(
-            "engine='generic' (the reference-literal oracle) operates on the"
-            " LGSSM (time-first) layout only; convert explicitly, e.g."
-            " LGSSM(P0, moveaxis(Fs, -1, 0), moveaxis(Qs, -1, 0), H, R)"
-        )
-    if engine == "pallas" and d > 8:
-        raise ValueError(
-            f"engine='pallas' (fused strip kernels) supports d <= 8, got"
-            f" d={d}; use engine='auto' (XLA time-last, any d)"
-        )
-    return engine == "pallas"
 
 
 def pkf(
@@ -222,49 +225,22 @@ def pkf(
     """Parallel Kalman filter (reference API: pssgp/kalman/parallel.py:121-152).
 
     ``max_parallel`` is accepted for reference-API compatibility and ignored
-    (see module docstring).  ``engine``: "auto" (time-last SoA fast path for
-    d ≤ 3, else generic), "timelast", "pallas", or "generic".
+    (see module docstring).  ``engine``: "auto" (time-last fast path for
+    d ≤ 3, else generic), "timelast", or "generic".
 
     Accepts either layout: an ``LGSSM`` (time-first, the reference layout)
-    or an ``LGSSMTL`` (time-last, the TPU-native layout from
-    ``SDEKernel.get_ssm_tl`` — zero relayouts on the d ≤ 3 fast path).
+    or an ``LGSSMTL`` (time-last, from ``SDEKernel.get_ssm_tl`` — zero
+    relayouts until the returned moments).
     """
     del max_parallel
-    if isinstance(lgssm, LGSSMTL):
+    if isinstance(lgssm, LGSSMTL) and _use_timelast(lgssm, engine):
         from parallel_gps_tpu.kalman.timelast import pkf_from_tl
 
-        # The time-last engine covers every state dim (Schur-recursed
-        # inverses for d > 3); the fused Pallas kernels cover d <= 8
-        # (explicit engine="pallas" only — VMEM and compile time grow with
-        # d^2, and f32 roundoff at d > 3 differs from the XLA engine at the
-        # few-significant-digit level typical of the conditioning).
-        # Unsupported explicit requests raise (see _tl_pallas).
-        out = pkf_from_tl(
-            lgssm,
-            observations,
-            return_loglikelihood,
-            pallas=_tl_pallas(lgssm, engine),
-        )
+        out = pkf_from_tl(lgssm, observations, return_loglikelihood)
         # Convert moments to the reference (T, d) layout; under jit the
         # conversion is dead-code-eliminated when callers only use ell.
-        if return_loglikelihood:
-            b_tl, C_tl, ell = out
-            return (
-                jnp.moveaxis(b_tl, -1, 0),
-                jnp.moveaxis(C_tl, -1, 0),
-                ell,
-            )
-        b_tl, C_tl = out
-        return jnp.moveaxis(b_tl, -1, 0), jnp.moveaxis(C_tl, -1, 0)
-    if engine == "pallas":
-        if lgssm.H.shape[0] > 1:
-            raise ValueError(
-                "engine='pallas' supports scalar observations only"
-                f" (H has {lgssm.H.shape[0]} rows); use engine='generic'"
-            )
-        from parallel_gps_tpu.kalman.timelast import pkf_pallas
-
-        return pkf_pallas(lgssm, observations, return_loglikelihood)
+        moments = tuple(jnp.moveaxis(x, -1, 0) for x in out[:2])
+        return moments + tuple(out[2:])
     if _use_timelast(lgssm, engine):
         from parallel_gps_tpu.kalman.timelast import pkf_tl
 
@@ -291,9 +267,9 @@ def pkf(
     prev_ms = jnp.concatenate([m0[None], fms[:-1]], axis=0)
     prev_Ps = jnp.concatenate([P0[None], fPs[:-1]], axis=0)
     mps = _mv(Fs, prev_ms)
-    Pps = Fs @ prev_Ps @ jnp.swapaxes(Fs, -1, -2) + Qs
+    Pps = mm(mm(Fs, prev_Ps), jnp.swapaxes(Fs, -1, -2)) + Qs
     obs_means = _mv(H[None], mps)  # (T, 1)
-    obs_covs = H[None] @ Pps @ H.T + R  # (T, 1, 1)
+    obs_covs = mm(mm(H[None], Pps), H.T) + R  # (T, 1, 1)
     logprobs = mvn_logpdf(y, obs_means, obs_covs)
     ell = jnp.sum(jnp.where(mask, logprobs, 0.0))
     return fms, fPs, ell
@@ -308,12 +284,12 @@ def make_smoothing_elements(
 
     F, Q = Fs[1:], Qs[1:]
     m, P = ms[:-1], Ps[:-1]
-    Pp = F @ P @ jnp.swapaxes(F, -1, -2) + Q
-    FP = F @ P
+    Pp = mm(mm(F, P), jnp.swapaxes(F, -1, -2)) + Q
+    FP = mm(F, P)
     # E = (Pp⁻¹ F P)ᵀ  via PSD solve.
     E = jnp.swapaxes(solve_small(symmetrize(Pp), FP), -1, -2)
-    g = m - _mv(E @ F, m)
-    L = symmetrize(P - E @ Pp @ jnp.swapaxes(E, -1, -2))
+    g = m - _mv(mm(E, F), m)
+    L = symmetrize(P - mm(mm(E, Pp), jnp.swapaxes(E, -1, -2)))
 
     E_last = jnp.zeros_like(Ps[-1])
     return SmoothingElement(
@@ -330,9 +306,9 @@ def smoothing_operator(
     (reference: pssgp/kalman/parallel.py:176-184)."""
     E1, g1, L1 = elem1
     E2, g2, L2 = elem2
-    E = E2 @ E1
+    E = mm(E2, E1)
     g = _mv(E2, g1) + g2
-    L = E2 @ L1 @ jnp.swapaxes(E2, -1, -2) + L2
+    L = mm(mm(E2, L1), jnp.swapaxes(E2, -1, -2)) + L2
     return SmoothingElement(E=E, g=g, L=L)
 
 
@@ -349,20 +325,13 @@ def pks(
     cases — for a fully time-last pipeline use ``pkfs`` on the LGSSMTL or
     ``kalman.timelast.pks_from_tl`` directly)."""
     del max_parallel
-    if isinstance(lgssm, LGSSMTL):
+    if isinstance(lgssm, LGSSMTL) and _use_timelast(lgssm, engine):
         from parallel_gps_tpu.kalman.timelast import pks_from_tl
 
         g_tl, L_tl = pks_from_tl(
-            lgssm,
-            jnp.moveaxis(ms, 0, -1),
-            jnp.moveaxis(Ps, 0, -1),
-            pallas=_tl_pallas(lgssm, engine),
+            lgssm, jnp.moveaxis(ms, 0, -1), jnp.moveaxis(Ps, 0, -1)
         )
         return jnp.moveaxis(g_tl, -1, 0), jnp.moveaxis(L_tl, -1, 0)
-    if engine == "pallas":
-        from parallel_gps_tpu.kalman.timelast import pks_pallas
-
-        return pks_pallas(lgssm, ms, Ps)
     if _use_timelast(lgssm, engine):
         from parallel_gps_tpu.kalman.timelast import pks_tl
 
@@ -388,13 +357,9 @@ def pkfs(
 
     On an LGSSMTL input the filtered moments stay time-last between the two
     scans and only the final smoothed moments are converted to (T, d)."""
-    if isinstance(lgssm, LGSSMTL):
+    if isinstance(lgssm, LGSSMTL) and _use_timelast(lgssm, engine):
         from parallel_gps_tpu.kalman.timelast import pkfs_from_tl
 
-        return pkfs_from_tl(
-            lgssm,
-            observations,
-            pallas=_tl_pallas(lgssm, engine),
-        )
+        return pkfs_from_tl(lgssm, observations)
     fms, fPs = pkf(lgssm, observations, False, engine=engine)
     return pks(lgssm, fms, fPs, engine=engine)

@@ -4,11 +4,14 @@ Semantics mirror the reference (pssgp/kalman/sequential.py): zero initial
 mean, per-step symmetrization, NaN observations skip the update step, and the
 log-marginal-likelihood accumulates per-step innovation log-densities.
 
-TPU-first differences from the reference:
+Differences from the reference:
   - ``jax.lax.scan`` instead of ``tf.scan``;
   - NaN handling by masked ``where``-selection instead of ``tf.cond``
     (branchless → no divergent control flow inside the compiled loop, and
-    NaNs are scrubbed before arithmetic so reverse-mode AD stays NaN-free).
+    NaNs are scrubbed before arithmetic so reverse-mode AD stays NaN-free);
+  - every matrix product runs at full float32 precision (``ops.linalg.mm``)
+    — this engine is the oracle, so it must not take the TF32 matmul mode
+    a GPU may use for float32 by default.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import jax
 import jax.numpy as jnp
 from jax import Array
 
-from parallel_gps_tpu.ops.linalg import cho_solve_psd, mvn_logpdf, symmetrize
+from parallel_gps_tpu.ops.linalg import cho_solve_psd, mm, mvn_logpdf, symmetrize
 from parallel_gps_tpu.types import LGSSM
 
 
@@ -49,16 +52,16 @@ def _filter_all(lgssm: LGSSM, observations: Array) -> _FilterResult:
         ell, m, P = carry
         y, F, Q, ok = inp
 
-        mp = F @ m
-        Pp = symmetrize(F @ P @ F.T + Q)
+        mp = mm(F, m)
+        Pp = symmetrize(mm(mm(F, P), F.T) + Q)
 
-        S = H @ Pp @ H.T + R  # (m, m)
-        yp = H @ mp  # (1,)
+        S = mm(mm(H, Pp), H.T) + R  # (m, m)
+        yp = mm(H, mp)  # (1,)
         ell_t = mvn_logpdf(y, yp, S)
-        Kt = cho_solve_psd(S, H @ Pp)  # (1, d)
+        Kt = cho_solve_psd(S, mm(H, Pp))  # (1, d)
 
-        m_upd = mp + Kt.T @ (y - yp)
-        P_upd = Pp - Kt.T @ S @ Kt
+        m_upd = mp + mm(Kt.T, y - yp)
+        P_upd = Pp - mm(mm(Kt.T, S), Kt)
 
         m = jnp.where(ok, m_upd, mp)
         P = symmetrize(jnp.where(ok, P_upd, Pp))
@@ -96,9 +99,9 @@ def ks(lgssm: LGSSM, ms: Array, Ps: Array, mps: Array, Pps: Array):
     def body(carry, inp):
         F, Q, m, P, mp, Pp = inp
         sm, sP = carry
-        Ct = cho_solve_psd(Pp, F @ P)  # (d, d)
-        sm = m + Ct.T @ (sm - mp)
-        sP = symmetrize(P + Ct.T @ (sP - Pp) @ Ct)
+        Ct = cho_solve_psd(Pp, mm(F, P))  # (d, d)
+        sm = m + mm(Ct.T, sm - mp)
+        sP = symmetrize(P + mm(mm(Ct.T, sP - Pp), Ct))
         return (sm, sP), (sm, sP)
 
     (_, _), (sms, sPs) = jax.lax.scan(

@@ -314,11 +314,11 @@ def sqrt_pkf(
     construction at any conditioning — the f32 d ≳ 12 stability engine
     (standard engines: kalman/parallel.py).
 
-    Traced under full-f32 matmul precision: TPU matmuls default to
-    bf16×bf16→f32, which costs this matmul/QR-heavy engine ~2 digits at
-    d=12 (measured: T=4096 LML 639.14 vs the 623.05 f64 truth at default
-    precision; 8-mantissa-bit products are fatal to triangular factors) —
-    the elementwise TL engine never sees this because it has no matmuls.
+    Traced under full-f32 matmul precision: at the default precision a
+    float32 matmul may run with reduced-mantissa inputs (TF32 on GPUs),
+    which costs this matmul/QR-heavy engine digits at d=12 and is fatal to
+    triangular factors — the elementwise TL engine never sees this because
+    it has no matmuls.
 
     ``sqQ``/``sqP0``: optional entrywise-accurate factors (see
     gramian_disc_factors / make_sqrt_filtering_elements); default = eigh
@@ -565,7 +565,7 @@ def sqrt_pkfs_kernel(
 # by the R-factor diagonal, and the information factors Z are rank-m BY
 # CONSTRUCTION (J = (HF)ᵀS⁻¹(HF) has rank m), so every training gradient is
 # NaN regardless of conditioning.  Instead the gradient uses Fisher's
-# identity exactly like the plane engines (kalman/timelast.py:743-796, the
+# identity exactly like the plane engines (kalman/timelast.py::lml_tl, the
 # same CONTRACT: exact for stationarity-consistent SSMs, which
 # ops.disc/get_ssm guarantee): backward = one SQUARE-ROOT smoother pass +
 # elementwise formulas.  Every inversion in the tail is a triangular solve

@@ -1,24 +1,22 @@
-"""Time-last (structure-of-arrays) parallel Kalman engine — the TPU fast path.
+"""Time-last (structure-of-arrays) parallel Kalman engine — the fast path.
 
-The generic engine stores scan elements as (T, d, d) arrays.  On TPU the
-trailing two dims land on the (8, 128) register tile, so d ≤ 3 wastes >95% of
-every tile, and the combine's batched tiny solves/matmuls run orders of
-magnitude below VPU speed-of-light (measured ~0.65 s for T=10⁶, d=2 — ~500×
-off the bandwidth bound).
+The generic engine stores scan elements as (T, d, d) arrays, so every
+combine is a batch of tiny (d, d) solves and matmuls that run far below the
+device's bandwidth bound at d ≤ 3.
 
 This engine keeps the SAME element algebra (reference:
 pssgp/kalman/parallel.py:13-201) but lays every element component out
-time-LAST — A as (d, d, T), b as (d, T) — so the time axis sits on the
-128-lane vector dimension and every operation in the combine is a fused
-elementwise multiply-add over (T,) planes:
+time-LAST — A as (d, d, T), b as (d, T) — so the time axis is the long,
+contiguous one and every operation in the combine is a fused elementwise
+multiply-add over (T,) planes:
 
-  - d×d matmuls are unrolled broadcast-multiply-reduce over the tiny axes;
+  - d×d matmuls are unrolled broadcast-multiply-reduce over the tiny axes
+    (no dot products, so no reduced-precision matmul modes apply);
   - the (I + C J)⁻¹ solves use closed-form adjugate inverses for d ≤ 3 and
     Schur-complement block recursion onto those base cases for d > 3 (see
     ``_inv``) — every state dimension in the framework (Matérn d ≤ 3, RBF
-    order k, Periodic 2(N+1), the CO2 composite d = 18) runs elementwise
-    on the VPU;
-  - the scan is Kogge-Stone over the lane axis: log2(T) rounds of
+    order k, Periodic 2(N+1), the CO2 composite d = 18) runs elementwise;
+  - the scan is Kogge-Stone over the time axis: log2(T) rounds of
     ``roll(+identity-mask)`` + combine, all elementwise — no strided
     dynamic slicing, no (T, d, d) relayouts.
 
@@ -28,13 +26,13 @@ the adjugate formulas.
 from __future__ import annotations
 
 import math
-from functools import partial
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 from jax import Array
 
+from parallel_gps_tpu.ops.linalg import mm
 from parallel_gps_tpu.types import LGSSM
 
 
@@ -83,9 +81,9 @@ def _inv(M: Array) -> Array:
     M = [[A, B], [C, D]] ⇒ blockwise inverse via A⁻¹ and the Schur
     complement S = D − C A⁻¹ B — every operation stays an elementwise
     multiply-add over the trailing (time/batch) axes, which is what keeps
-    the time-last engine on the VPU for high-order kernels (RBF order k,
+    the time-last engine elementwise for high-order kernels (RBF order k,
     Periodic, the CO2 composite at d = 18) instead of falling back to the
-    generic engine's pathological batched tiny solves (VERDICT.md item 2).
+    generic engine's batched tiny solves.
 
     Block stability: the engine inverts either SPD matrices (smoother
     predicted covariances) or I + C·J with C, J PSD (filter combine) whose
@@ -198,8 +196,8 @@ def _filtering_elements_from_planes(
 
     # First element: filter step against (m0=0, P0)
     # (reference: parallel.py:13-43).
-    P0h = P0 @ h  # (d,)
-    S1 = h @ P0h + r
+    P0h = mm(P0, h)  # (d,)
+    S1 = jnp.sum(h * P0h) + r
     K1 = P0h / S1  # (d,)
     b0_ok = K1 * y[0]
     C0_ok = P0 - jnp.outer(K1, P0h)
@@ -265,7 +263,7 @@ def smoothing_operator_tl(
 
 
 # --------------------------------------------------------------------------
-# Kogge-Stone scan over the lane (last) axis
+# Kogge-Stone scan over the time (last) axis
 # --------------------------------------------------------------------------
 
 
@@ -538,87 +536,12 @@ def pkfs_tl(lgssm: LGSSM, observations: Array):
 
 
 # --------------------------------------------------------------------------
-# Fused Pallas path (opt-in; no VJP — use the XLA path under jax.grad)
-# --------------------------------------------------------------------------
-
-
-def pkf_pallas(
-    lgssm: LGSSM,
-    observations: Array,
-    return_loglikelihood=False,
-    block: int | None = None,
-    interpret: bool = False,
-):
-    from parallel_gps_tpu.kalman.pallas_scan import (
-        DEFAULT_BLOCK,
-        pallas_plane_scan,
-    )
-
-    P0, Fs, _, _, _ = lgssm
-    d = P0.shape[0]
-    T = Fs.shape[0]
-    e = make_filtering_elements_tl(lgssm, observations)
-    planes = jnp.concatenate(
-        [e.A.reshape(d * d, T), e.b, e.C.reshape(d * d, T),
-         e.J.reshape(d * d, T), e.eta],
-        axis=0,
-    )
-    out = pallas_plane_scan(
-        planes, d, "filter", block=block or DEFAULT_BLOCK, interpret=interpret
-    )
-    b_tl = out[d * d : d * d + d]
-    C_tl = out[d * d + d : 2 * d * d + d].reshape(d, d, T)
-    fms = jnp.moveaxis(b_tl, -1, 0)
-    fPs = jnp.moveaxis(C_tl, -1, 0)
-    if not return_loglikelihood:
-        return fms, fPs
-    return fms, fPs, _loglik_tl(lgssm, b_tl, C_tl, observations)
-
-
-def pks_pallas(
-    lgssm: LGSSM,
-    ms: Array,
-    Ps: Array,
-    block: int | None = None,
-    interpret: bool = False,
-):
-    from parallel_gps_tpu.kalman.pallas_scan import (
-        DEFAULT_BLOCK,
-        pallas_plane_scan,
-    )
-
-    d = lgssm.P0.shape[0]
-    T = ms.shape[0]
-    e = make_smoothing_elements_tl(lgssm, ms, Ps)
-    planes = jnp.concatenate(
-        [e.E.reshape(d * d, T), e.g, e.L.reshape(d * d, T)], axis=0
-    )
-    out = pallas_plane_scan(
-        planes,
-        d,
-        "smoother",
-        reverse=True,
-        block=block or DEFAULT_BLOCK,
-        interpret=interpret,
-    )
-    g_tl = out[d * d : d * d + d]
-    L_tl = out[d * d + d :].reshape(d, d, T)
-    return jnp.moveaxis(g_tl, -1, 0), jnp.moveaxis(L_tl, -1, 0)
-
-
-def pkfs_pallas(lgssm: LGSSM, observations: Array, interpret: bool = False):
-    fms, fPs = pkf_pallas(lgssm, observations, interpret=interpret)
-    return pks_pallas(lgssm, fms, fPs, interpret=interpret)
-
-
-# --------------------------------------------------------------------------
 # LGSSMTL-native entry points: zero relayouts end-to-end.
 #
-# The (T, d, d) ↔ (d, d, T) transposes that the LGSSM wrappers above pay are
-# the dominant cost at T = 10⁶ (~25 ms vs ~1 ms for the scan itself);
-# kernels emit LGSSMTL directly (SDEKernel.get_ssm_tl) and these functions
-# keep every intermediate time-last, converting only the final user-facing
-# moments via a line-rate Pallas transpose.
+# The (T, d, d) ↔ (d, d, T) transposes that the LGSSM wrappers above pay
+# would cost more than the scan itself at T = 10⁶; kernels emit LGSSMTL
+# directly (SDEKernel.get_ssm_tl) and these functions keep every
+# intermediate time-last, converting only the final user-facing moments.
 # --------------------------------------------------------------------------
 
 
@@ -626,37 +549,12 @@ def pkf_from_tl(
     lgssm_tl,
     observations: Array,
     return_loglikelihood: bool = False,
-    pallas: bool = False,
-    interpret: bool = False,
-    block: int | None = None,
 ):
-    """Parallel Kalman filter on a time-last LGSSMTL.
-
-    ``pallas=True`` uses the fused single-pass scan kernel (forward only —
-    no VJP); otherwise the XLA Kogge-Stone scan (differentiable).
-    """
+    """Parallel Kalman filter on a time-last LGSSMTL; returns time-last
+    moments (b (d, T), C (d, d, T)[, ell])."""
     P0, Fs_tl, Qs_tl, H, R = lgssm_tl
     d = P0.shape[0]
     dtype = P0.dtype
-    if pallas:
-        # Strip-layout fused engine: element construction + per-strip scan +
-        # streaming log-likelihood, full sublane utilization
-        # (see pallas_scan.strip_filter).  Routed through the custom_vmap
-        # wrapper so vmapped callers (batched GPs / MCMC chains) hit the
-        # batched-sublane kernels instead of failing at Mosaic lowering.
-        from parallel_gps_tpu import config
-        from parallel_gps_tpu.kalman.pallas_scan import (
-            pick_strip_block,
-            strip_filter_op,
-        )
-
-        block, interpret = config.pallas_interpret_overrides(block, interpret)
-        b_tl, C_tl, ell = strip_filter_op(
-            block or pick_strip_block(d, jnp.dtype(dtype).itemsize), interpret
-        )(Fs_tl, Qs_tl, P0, H, R, observations)
-        if not return_loglikelihood:
-            return b_tl, C_tl
-        return b_tl, C_tl, ell
     e = _filtering_elements_from_planes(P0, Fs_tl, Qs_tl, H, R, observations)
     final = kogge_stone_scan_tl(
         filtering_operator_tl, e, filtering_identity_tl(d, dtype)
@@ -670,84 +568,41 @@ def pkf_from_tl(
     return b_tl, C_tl, ell
 
 
-def pks_from_tl(
-    lgssm_tl,
-    b_tl: Array,
-    C_tl: Array,
-    pallas: bool = False,
-    interpret: bool = False,
-    block: int | None = None,
-):
+def pks_from_tl(lgssm_tl, b_tl: Array, C_tl: Array):
     """Parallel RTS smoother on time-last moments; returns (g_tl, L_tl)."""
     P0, Fs_tl, Qs_tl, _, _ = lgssm_tl
     d = P0.shape[0]
-    dtype = P0.dtype
-    if pallas:
-        # Strip-layout fused engine: smoothing elements built in VMEM from
-        # the raw F/Q/moment planes (see pallas_scan.strip_smoother);
-        # custom_vmap-wrapped like the filter.
-        from parallel_gps_tpu import config
-        from parallel_gps_tpu.kalman.pallas_scan import (
-            pick_strip_block,
-            strip_smoother_op,
-        )
-
-        block, interpret = config.pallas_interpret_overrides(block, interpret)
-        return strip_smoother_op(
-            block or pick_strip_block(d, jnp.dtype(dtype).itemsize), interpret
-        )(Fs_tl, Qs_tl, b_tl, C_tl)
     e = _smoothing_elements_from_planes(Fs_tl, Qs_tl, b_tl, C_tl)
     final = kogge_stone_scan_tl(
         smoothing_operator_tl,
         e,
-        smoothing_identity_tl(d, dtype),
+        smoothing_identity_tl(d, P0.dtype),
         reverse=True,
     )
     return final.g, final.L
 
 
-def pkfs_from_tl(
-    lgssm_tl,
-    observations: Array,
-    pallas: bool = False,
-    interpret: bool = False,
-    time_first_out: bool = True,
-    block: int | None = None,
-):
+def pkfs_from_tl(lgssm_tl, observations: Array, time_first_out: bool = True):
     """Filter + smoother on an LGSSMTL; the filtered moments stay time-last
     between the two scans (no mid-pipeline relayout).
 
     Returns (sms (T, d), sPs (T, d, d)) when ``time_first_out`` (the
-    reference layout, converted via the Pallas transpose when on the pallas
-    path), else the raw time-last (g_tl (d, T), L_tl (d, d, T))."""
-    d = lgssm_tl.P0.shape[0]
-    b_tl, C_tl = pkf_from_tl(
-        lgssm_tl, observations, pallas=pallas, interpret=interpret,
-        block=block,
-    )
-    g_tl, L_tl = pks_from_tl(
-        lgssm_tl, b_tl, C_tl, pallas=pallas, interpret=interpret,
-        block=block,
-    )
+    reference layout), else the raw time-last (g_tl (d, T), L_tl (d, d, T))."""
+    b_tl, C_tl = pkf_from_tl(lgssm_tl, observations)
+    g_tl, L_tl = pks_from_tl(lgssm_tl, b_tl, C_tl)
     if not time_first_out:
         return g_tl, L_tl
-    # Plain XLA moveaxis for the final (d, T) → (T, d) conversion: measured
-    # ~1.3 ms/plane-set at T=10⁶ on v5e vs ~4 ms for the blockwise Pallas
-    # transpose (XLA fuses the relayout into the copy out of the apply
-    # kernels) — the transposes were the dominant cost of the round-1
-    # pipeline (~6 ms of the 9.2 ms pkfs wall).
     return jnp.moveaxis(g_tl, -1, 0), jnp.moveaxis(L_tl, -1, 0)
 
 
 # --------------------------------------------------------------------------
 # Fisher-identity log-marginal-likelihood with a custom VJP.
 #
-# Reverse-mode autodiff through the Kogge-Stone scan replays ~log2(T) HBM
-# passes forward AND backward (~130 ms at T=10⁶ for LML+grad).  But the
-# gradient of an LGSSM's log-likelihood has a CLOSED FORM in the smoothed
-# posterior (Fisher's identity, ∇θ ℓ = E_{x|y}[∇θ log p(x, y)]):
-# backward = ONE smoother pass + elementwise formulas — ~10× faster, and
-# the forward can use the (non-differentiable) fused Pallas filter.
+# Reverse-mode autodiff through the Kogge-Stone scan replays ~log2(T)
+# full-size passes forward AND backward.  But the gradient of an LGSSM's
+# log-likelihood has a CLOSED FORM in the smoothed posterior (Fisher's
+# identity, ∇θ ℓ = E_{x|y}[∇θ log p(x, y)]): backward = ONE smoother pass +
+# elementwise formulas.
 #
 # Generative model differentiated: x₋₁ ~ N(0, P0); x_k = F_k x_{k−1} + w_k,
 # w_k ~ N(0, Q_k); y_k = H x_k + v_k, v_k ~ N(0, R); NaN = missing.
@@ -775,32 +630,24 @@ def _smoother_gains_tl(Fs_tl, Qs_tl, b_tl, C_tl):
     return _mt(_mm(_inv(Pp), _mm(A, P)))
 
 
-def _lml_tl_fwd_value(lgssm_tl, observations, pallas):
-    from parallel_gps_tpu.types import LGSSMTL
-
-    assert isinstance(lgssm_tl, LGSSMTL)
-    b_tl, C_tl, ell = pkf_from_tl(
-        lgssm_tl, observations, return_loglikelihood=True, pallas=pallas
-    )
-    return ell, (b_tl, C_tl)
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(2,))
-def lml_tl(lgssm_tl, observations, pallas=False):
+@jax.custom_vjp
+def lml_tl(lgssm_tl, observations):
     """Log marginal likelihood of an LGSSMTL with Fisher-identity gradients
-    (see section comment).  ``pallas`` selects the fused forward kernels."""
-    ell, _ = _lml_tl_fwd_value(lgssm_tl, observations, pallas)
+    (see section comment)."""
+    _, _, ell = pkf_from_tl(lgssm_tl, observations, return_loglikelihood=True)
     return ell
 
 
-def _lml_tl_fwd(lgssm_tl, observations, pallas):
-    ell, (b_tl, C_tl) = _lml_tl_fwd_value(lgssm_tl, observations, pallas)
+def _lml_tl_fwd(lgssm_tl, observations):
+    b_tl, C_tl, ell = pkf_from_tl(
+        lgssm_tl, observations, return_loglikelihood=True
+    )
     return ell, (lgssm_tl, observations, b_tl, C_tl)
 
 
-def _lml_tl_bwd(pallas, residuals, gbar):
+def _lml_tl_bwd(residuals, gbar):
     lgssm_tl, observations, b_tl, C_tl = residuals
-    mhat, Phat = pks_from_tl(lgssm_tl, b_tl, C_tl, pallas=pallas)
+    mhat, Phat = pks_from_tl(lgssm_tl, b_tl, C_tl)
     return fisher_grads_from_smoothed(
         lgssm_tl, observations, b_tl, C_tl, mhat, Phat, gbar
     )
@@ -832,12 +679,12 @@ def fisher_grads_from_smoothed(
     E = _smoother_gains_tl(Fs, Qs, b_tl, C_tl)
     F0 = Fs[:, :, 0]
     Q0 = Qs[:, :, 0]
-    Pp0 = F0 @ P0 @ F0.T + Q0
-    # Adjugate inverse (d ≤ 3): no LU, works for any dtype/backend.
+    Pp0 = mm(mm(F0, P0), F0.T) + Q0
+    # Time-last inverse on a T = 1 plane: no LU, any dtype/backend.
     Pp0inv = _inv(_sym(Pp0[:, :, None]))[:, :, 0]
-    Em1 = (Pp0inv @ (F0 @ P0)).T  # P0 F0ᵀ Pp0⁻¹
+    Em1 = mm(Pp0inv, mm(F0, P0)).T  # P0 F0ᵀ Pp0⁻¹
     E_prev = jnp.concatenate([Em1[:, :, None], E], axis=-1)
-    mham1 = Em1 @ mhat[:, 0]  # m̂₋₁ (mp₀ = 0)
+    mham1 = mm(Em1, mhat[:, 0])  # m̂₋₁ (mp₀ = 0)
     mh_prev = jnp.concatenate([mham1[:, None], mhat[:, :-1]], axis=-1)
 
     # Predicted moments mp_k = F_k m_{k−1}, Pp_k = F_k P_{k−1} F_kᵀ + Q_k.
@@ -865,7 +712,7 @@ def fisher_grads_from_smoothed(
     PiD = _mm(Ppinv, Dk)
     dQ = 0.5 * (_mm(PiD, Ppinv) + rk[:, None, :] * rk[None, :, :])
     dF = rk[:, None, :] * mh_prev[None, :, :] + _mm(PiD, _mt(E_prev))
-    dP0 = F0.T @ dQ[:, :, 0] @ F0
+    dP0 = mm(mm(F0.T, dQ[:, :, 0]), F0)
 
     # Observation terms (observed steps only); R is (1, 1).
     Hm = jnp.sum(h[:, None] * mhat, axis=0)  # (T,)

@@ -1,7 +1,7 @@
 """Kernel → SDE compiler: base classes and Sum/Product combinators.
 
-Kernels are immutable flax.struct dataclasses, hence JAX pytrees whose leaves
-are the (constrained) hyperparameters — they pass directly through
+Kernels are immutable pytree dataclasses (``parallel_gps_tpu.pytree``) whose
+leaves are the (constrained) hyperparameters — they pass directly through
 ``jit`` / ``grad`` / ``vmap``.  Each kernel provides:
 
   - ``get_sde()``: the LTI SDE of the stationary covariance
@@ -21,13 +21,13 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 from jax import Array
 
-from parallel_gps_tpu import config
+from parallel_gps_tpu import config, pytree
 from parallel_gps_tpu.ops.balance import balance_scale, balance_ss
 from parallel_gps_tpu.ops.disc import discretize, discretize_tl
 from parallel_gps_tpu.ops.expm import expm1_dt_batched
+from parallel_gps_tpu.ops.linalg import mm
 from parallel_gps_tpu.ops.lyapunov import solve_lyap_vec
 from parallel_gps_tpu.types import LGSSM, LGSSMTL, ContinuousDiscreteModel
 
@@ -79,7 +79,7 @@ class SDEKernel:
     def transitions_m1_tl(self, dts: Array):
         """Time-last ``expm(dt_k · F) − I`` as (d, d, T), or None.
 
-        Kernels with closed forms build this from (T,) lane planes by pure
+        Kernels with closed forms build this from (T,) planes by pure
         broadcasts (no relayout); the default derives it from
         :meth:`transitions_m1` via one transpose."""
         m1 = self.transitions_m1(dts)
@@ -88,17 +88,16 @@ class SDEKernel:
         return jnp.moveaxis(m1, 0, -1)
 
     def get_ssm_tl(self, ts: Array, R: Array, t0=0.0) -> LGSSMTL:
-        """Time-last LGSSM — the TPU fast-path layout (see types.LGSSMTL)."""
+        """Time-last LGSSM — the fast-path layout (see types.LGSSMTL)."""
         sde = self.get_sde()
         dtype = sde.F.dtype
 
         def trans_m1_tl(dts):
             Am1 = self.transitions_m1_tl(dts.astype(dtype))
             if Am1 is None:
-                # Time-last Padé path: the batched (T, d, d) expm pads every
-                # tiny matrix to a register tile (28x memory at d=6 — OOMs
-                # N=1M high-order kernels); expm1_dt_tl stays on (d, d, T)
-                # lane planes end-to-end (ops/expm.py).
+                # Time-last Padé path: expm1_dt_tl stays on (d, d, T)
+                # planes end-to-end, with no (T, d, d) relayout
+                # (ops/expm.py).
                 from parallel_gps_tpu.ops.expm import expm1_dt_tl
 
                 Am1 = expm1_dt_tl(sde.F, dts.astype(dtype))
@@ -107,28 +106,25 @@ class SDEKernel:
         return discretize_tl(sde, ts, R, t0, transitions_m1_tl=trans_m1_tl)
 
     def transition_coeffs(self):
-        """Fused-discretization hook for the dt-engine (kalman/pallas_dt.py):
-        returns ``(coeffs, build)`` or None.
+        """Elementwise closed form of the transitions: ``(coeffs, build)``
+        or None.
 
         ``coeffs`` is a flat (n,) coefficient vector — an arbitrary traced
-        function of the kernel's hyperparameters, computed OUTSIDE the
-        Pallas kernels (so it may balance, take roots, etc.).  ``build`` is
-        a STATIC Python callable (it must not close over traced values)
-        mapping ``(c, dt) -> Am1`` where ``c`` is the list of n scalar
-        coefficients read back from SMEM, ``dt`` an array of any shape, and
+        function of the kernel's hyperparameters (it may balance, take
+        roots, etc.).  ``build`` is a STATIC Python callable (it must not
+        close over traced values) mapping ``(c, dt) -> Am1`` where ``c`` is
+        the list of n scalar coefficients, ``dt`` an array of any shape, and
         ``Am1 = expm(dt·F) − I`` is returned as a d×d list-of-lists of
-        arrays shaped like ``dt`` using ONLY elementwise ops (exp/expm1/
-        sin/mul/add — Mosaic-lowerable on (sublane, lane) tiles).  An entry
-        may be ``None``, meaning exactly zero: the dt-engine's None-aware
-        algebra (kalman.pallas_dt.zmul/zsum) then skips it, so Sum
-        block-diagonals and Periodic rotation planes cost no vector ops for
-        their structural zeros.
+        arrays shaped like ``dt`` using ONLY elementwise ops
+        (exp/expm1/sin/mul/add).  An entry may be ``None``, meaning exactly
+        zero (see :func:`zmul` / :func:`zsum`), so Sum block-diagonals and
+        Periodic rotation planes carry their structural zeros.
 
-        The dt-engine kernels rebuild F and the cancellation-free
-        ``Q = P∞ − A P∞ Aᵀ`` from this in registers, so the (d, d, T)
-        transition/noise planes never exist in HBM.  Kernels without an
-        elementwise closed form return None (default) and use the
-        plane-streaming strip engine instead."""
+        This is the contract a fused scan kernel needs to rebuild F and the
+        cancellation-free ``Q = P∞ − A P∞ Aᵀ`` from the (T,) dt plane
+        instead of reading (d, d, T) planes; it must agree entrywise with
+        :meth:`transitions_m1_tl`.  Kernels without an elementwise closed
+        form return None (default)."""
         return None
 
     def __add__(self, other: "SDEKernel") -> "Sum":
@@ -136,6 +132,22 @@ class SDEKernel:
 
     def __mul__(self, other: "SDEKernel") -> "Product":
         return Product(kernels=(self, other))
+
+
+def zmul(a, b):
+    """None-as-structural-zero product (see SDEKernel.transition_coeffs)."""
+    return None if a is None or b is None else a * b
+
+
+def zsum(terms):
+    """None-aware sum; None when every term is structurally zero."""
+    live = [t for t in terms if t is not None]
+    if not live:
+        return None
+    out = live[0]
+    for t in live[1:]:
+        out = out + t
+    return out
 
 
 def _block_diag(arrs) -> Array:
@@ -152,13 +164,13 @@ def _block_diag(arrs) -> Array:
     return out
 
 
-@struct.dataclass
+@pytree.dataclass
 class Sum(SDEKernel):
     """Sum of SDE kernels: concatenated (block-diagonal) state space
     (reference: pssgp/kernels/base.py:130-183)."""
 
     kernels: Tuple[SDEKernel, ...]
-    balancing_iter: int = struct.field(pytree_node=False, default=-1)
+    balancing_iter: int = pytree.field(pytree_node=False, default=-1)
 
     @property
     def state_dim(self) -> int:
@@ -216,8 +228,7 @@ class Sum(SDEKernel):
     def transitions_m1_tl(self, dts: Array):
         """Time-last counterpart of :meth:`transitions_m1`: children's
         (dk, dk, T) planes written into the block diagonal of a (d, d, T)
-        stack — no batched (T, d, d) layout is ever materialized (the
-        register-padded form OOMs at N ≥ 1M for composite dims)."""
+        stack — no batched (T, d, d) layout is ever materialized."""
         from parallel_gps_tpu.ops.expm import expm1_dt_tl
 
         sdes = [k.get_sde() for k in self.kernels]
@@ -240,9 +251,9 @@ class Sum(SDEKernel):
         return out * (d[None, :, None] / d[:, None, None])
 
     def transition_coeffs(self):
-        """dt-engine hook for sums: the children's builds written into the
+        """Closed form for sums: the children's builds written into the
         block diagonal (structural zeros stay ``None`` — see
-        kalman.pallas_dt.zmul), conjugated by this Sum's balancing
+        :func:`zmul`), conjugated by this Sum's balancing
         similarity, whose scale vector (and its reciprocal) travels in the
         coefficient vector.  None when any child lacks a closed form."""
         parts = [k.transition_coeffs() for k in self.kernels]
@@ -280,7 +291,7 @@ class Sum(SDEKernel):
 
         return coeffs, build
 
-    def __repr__(self):  # avoid flax auto-repr recursion noise in errors
+    def __repr__(self):  # compact form of the nested dataclass repr
         return f"Sum({', '.join(map(repr, self.kernels))})"
 
 
@@ -291,7 +302,7 @@ def _kron_F(F1: Array, F2: Array) -> Array:
     return jnp.kron(F1, I2) + jnp.kron(I1, F2)
 
 
-@struct.dataclass
+@pytree.dataclass
 class Product(SDEKernel):
     """Product of SDE kernels via Kronecker algebra
     (reference: pssgp/kernels/base.py:186-244).
@@ -302,7 +313,7 @@ class Product(SDEKernel):
     """
 
     kernels: Tuple[SDEKernel, ...]
-    balancing_iter: int = struct.field(pytree_node=False, default=-1)
+    balancing_iter: int = pytree.field(pytree_node=False, default=-1)
 
     @property
     def state_dim(self) -> int:
@@ -316,8 +327,8 @@ class Product(SDEKernel):
 
         def fold(s1: ContinuousDiscreteModel, s2: ContinuousDiscreteModel):
             F = _kron_F(s1.F, s2.F)
-            gamma1 = s1.L @ s1.Q @ s1.L.T
-            gamma2 = s2.L @ s2.Q @ s2.L.T
+            gamma1 = mm(mm(s1.L, s1.Q), s1.L.T)
+            gamma2 = mm(mm(s2.L, s2.Q), s2.L.T)
             Q = jnp.kron(gamma1, s2.P0) + jnp.kron(s1.P0, gamma2)
             H = jnp.kron(s1.H, s2.H)
             P0 = jnp.kron(s1.P0, s2.P0)
@@ -375,9 +386,9 @@ class Product(SDEKernel):
     def transitions_m1_tl(self, dts: Array):
         """Time-last Kronecker fold (see :meth:`transitions_m1`): the
         Kronecker products broadcast over (dₐ, d_b, dₐ, d_b, T) with the T
-        axis last, so no register-padded batched (T, d, d) layout appears —
-        the quasi-periodic CO2 composite (d = 18) discretizes at N ≥ 1M
-        without the 28×-padded-temp blowup."""
+        axis last, so no batched (T, d, d) layout appears — the
+        quasi-periodic CO2 composite (d = 18) discretizes at N ≥ 1M in
+        (d, d, T) planes."""
         from parallel_gps_tpu.ops.expm import expm1_dt_tl
 
         sdes = [k.get_sde() for k in self.kernels]
@@ -388,7 +399,7 @@ class Product(SDEKernel):
                 m1 = expm1_dt_tl(s.F, dts)
             children.append(m1)
 
-        def bkron_tl(a, b):  # Kronecker over the leading dims, T on lanes
+        def bkron_tl(a, b):  # Kronecker over the leading dims, T last
             da = a.shape[0]
             db = b.shape[0]
             T = a.shape[-1]
@@ -418,13 +429,11 @@ class Product(SDEKernel):
         )
 
     def transition_coeffs(self):
-        """dt-engine hook for products: the commuting-Kronecker fold
+        """Closed form for products: the commuting-Kronecker fold
         ``A − I = Am1_a ⊗ Am1_b + Am1_a ⊗ I + I ⊗ Am1_b`` applied entrywise
         to the children's builds (None = structural zero propagates through
         the fold), conjugated by this Product's balancing similarity.  None
         when any child lacks a closed form."""
-        from parallel_gps_tpu.kalman.pallas_dt import zmul, zsum
-
         parts = [k.transition_coeffs() for k in self.kernels]
         if any(p is None for p in parts):
             return None

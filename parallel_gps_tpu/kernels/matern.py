@@ -14,15 +14,14 @@ from __future__ import annotations
 
 import math
 
+import jax
 import jax.numpy as jnp
-from flax import struct
 from jax import Array
 
-import jax
-
-from parallel_gps_tpu import config
+from parallel_gps_tpu import config, pytree
 from parallel_gps_tpu.kernels.base import SDEKernel, scaled_dist
 from parallel_gps_tpu.ops.balance import balance_scale, balance_ss
+from parallel_gps_tpu.ops.linalg import mm
 from parallel_gps_tpu.ops.lyapunov import solve_lyap_vec
 from parallel_gps_tpu.types import ContinuousDiscreteModel
 
@@ -51,21 +50,6 @@ def matern_sde(variance, lengthscales, d: int):
     return F, L, H, Q
 
 
-def _expm1_neg(x):
-    """``expm1(−x)`` for x ≥ 0 with Mosaic-lowerable ops only.
-
-    The TPU kernel path has no expm1 primitive, and ``exp(−x) − 1`` loses
-    all relative precision for x ≲ √eps — exactly the tiny-dt regime the
-    cancellation-free discretization exists for — so small x takes the
-    Taylor series −x(1 − x/2 + x²/6 − x³/24) (truncation ≤ x⁴/120 < f32 eps
-    below the 1/16 threshold).  f64 never runs natively on the TPU kernels
-    (Mosaic is f32), so it keeps the true expm1."""
-    if x.dtype == jnp.float64:
-        return jnp.expm1(-x)
-    series = -x * (1.0 - x * (0.5 - x * (1.0 / 6.0 - x * (1.0 / 24.0))))
-    return jnp.where(x < 0.0625, series, jnp.exp(-x) - 1.0)
-
-
 def exppoly_transition_coeffs(d: int, lam, N_powers):
     """(coeffs, build) for the exponential-polynomial transition family
 
@@ -84,7 +68,7 @@ def exppoly_transition_coeffs(d: int, lam, N_powers):
 
     def build(c, dt):
         lam_ = c[0]
-        em1 = _expm1_neg(lam_ * dt)
+        em1 = jnp.expm1(-lam_ * dt)
         rows = [
             [em1 if i == j else jnp.zeros_like(dt) for j in range(d)]
             for i in range(d)
@@ -103,7 +87,7 @@ def exppoly_transition_coeffs(d: int, lam, N_powers):
     return coeffs, build
 
 
-@struct.dataclass
+@pytree.dataclass
 class Matern12(SDEKernel):
     variance: Array = 1.0
     lengthscales: Array = 1.0
@@ -137,7 +121,7 @@ class Matern12(SDEKernel):
         return self.variance * jnp.exp(-r)
 
 
-@struct.dataclass
+@pytree.dataclass
 class Matern32(SDEKernel):
     variance: Array = 1.0
     lengthscales: Array = 1.0
@@ -172,7 +156,7 @@ class Matern32(SDEKernel):
 
     def transitions_m1_tl(self, dts: Array):
         """Same closed form, assembled time-last: each (i, j) entry is a
-        (T,) lane plane, so the (2, 2, T) stack is relayout-free."""
+        (T,) plane, so the (2, 2, T) stack is relayout-free."""
         lam = math.sqrt(3) / jnp.asarray(self.lengthscales, dts.dtype)
         t = dts
         em1 = jnp.expm1(-lam * t)
@@ -199,11 +183,11 @@ class Matern32(SDEKernel):
         return self.variance * (1.0 + r) * jnp.exp(-r)
 
 
-@struct.dataclass
+@pytree.dataclass
 class Matern52(SDEKernel):
     variance: Array = 1.0
     lengthscales: Array = 1.0
-    balancing_iter: int = struct.field(pytree_node=False, default=-1)
+    balancing_iter: int = pytree.field(pytree_node=False, default=-1)
 
     @property
     def state_dim(self) -> int:
@@ -233,7 +217,7 @@ class Matern52(SDEKernel):
         lam = math.sqrt(5) / jnp.asarray(self.lengthscales, dtype)
         eye = jnp.eye(3, dtype=dtype)
         N = F.astype(dtype) + lam * eye
-        N2 = N @ N
+        N2 = mm(N, N)
         t = dts[:, None, None]
         Em1 = jnp.expm1(-lam * t) * eye + jnp.exp(-lam * t) * (
             t * N + 0.5 * t * t * N2
@@ -247,13 +231,13 @@ class Matern52(SDEKernel):
         return Em1 * (d[None, None, :] / d[None, :, None])
 
     def transitions_m1_tl(self, dts: Array):
-        """Time-last variant of :meth:`transitions_m1`: t is the lane axis."""
+        """Time-last variant of :meth:`transitions_m1`: t is the last axis."""
         F, _, _, _ = matern_sde(self.variance, self.lengthscales, 3)
         dtype = dts.dtype
         lam = math.sqrt(5) / jnp.asarray(self.lengthscales, dtype)
         eye = jnp.eye(3, dtype=dtype)
         N = F.astype(dtype) + lam * eye
-        N2 = N @ N
+        N2 = mm(N, N)
         t = dts[None, None, :]  # (1, 1, T)
         Em1 = jnp.expm1(-lam * t) * eye[:, :, None] + jnp.exp(-lam * t) * (
             t * N[:, :, None] + 0.5 * t * t * N2[:, :, None]
@@ -271,7 +255,7 @@ class Matern52(SDEKernel):
         F, _, _, _ = matern_sde(self.variance, self.lengthscales, 3)
         lam = math.sqrt(5) / jnp.asarray(self.lengthscales, dtype)
         N = F.astype(dtype) + lam * jnp.eye(3, dtype=dtype)
-        N2 = N @ N
+        N2 = mm(N, N)
         n_iter = (
             self.balancing_iter
             if self.balancing_iter >= 0

@@ -17,10 +17,9 @@ from functools import lru_cache
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 from jax import Array
 
-from parallel_gps_tpu import config
+from parallel_gps_tpu import config, pytree
 from parallel_gps_tpu.kernels.base import SDEKernel
 from parallel_gps_tpu.types import ContinuousDiscreteModel
 
@@ -42,14 +41,14 @@ def _offline_coeffs(N: int):
     return b.astype(np.float64), K.astype(np.float64), div_facto_K.astype(np.float64)
 
 
-@struct.dataclass
+@pytree.dataclass
 class Periodic(SDEKernel):
     """Periodic kernel with SquaredExponential base (GPflow convention)."""
 
     variance: Array = 1.0
     lengthscales: Array = 1.0
     period: Array = 1.0
-    order: int = struct.field(pytree_node=False, default=6)
+    order: int = pytree.field(pytree_node=False, default=6)
 
     @property
     def state_dim(self) -> int:
@@ -117,9 +116,9 @@ class Periodic(SDEKernel):
 
     def transitions_m1_tl(self, dts: Array):
         """Time-last rotation planes, assembled directly as (d, d, T): each
-        (i, j) entry is a (T,) lane plane — composite discretization through
-        :meth:`SDEKernel.get_ssm_tl` never materializes the register-padded
-        batched (T, d, d) layout (the expm1_dt_tl rationale, ops/expm.py)."""
+        (i, j) entry is a (T,) plane — composite discretization through
+        :meth:`SDEKernel.get_ssm_tl` never materializes the batched
+        (T, d, d) layout (the expm1_dt_tl rationale, ops/expm.py)."""
         dtype = dts.dtype
         N = self.order
         w0 = 2.0 * math.pi / jnp.asarray(self.period, dtype)
@@ -138,11 +137,11 @@ class Periodic(SDEKernel):
         return out
 
     def transition_coeffs(self):
-        """dt-engine hook: one coefficient (ω₀); the build emits the
-        rotation planes of :meth:`transitions_m1` with elementwise sin only
-        (cosθ − 1 = −2 sin²(θ/2)).  The j = 0 oscillator is the identity
+        """Closed form (see SDEKernel.transition_coeffs): one coefficient
+        (ω₀); the build emits the rotation planes of :meth:`transitions_m1`
+        with elementwise sin only (cosθ − 1 = −2 sin²(θ/2)).  The j = 0 oscillator is the identity
         (Am1 block exactly zero), so its entries stay None (structural
-        zeros, kalman.pallas_dt.zmul)."""
+        zeros, kernels.base.zmul)."""
         dtype = config.default_float()
         w0 = 2.0 * math.pi / jnp.asarray(self.period, dtype)
         coeffs = w0.reshape(1)

@@ -14,10 +14,9 @@ from functools import lru_cache
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 from jax import Array
 
-from parallel_gps_tpu import config
+from parallel_gps_tpu import config, pytree
 from parallel_gps_tpu.kernels.base import SDEKernel, scaled_dist
 from parallel_gps_tpu.ops.balance import balance_scale, balance_ss
 from parallel_gps_tpu.ops.lyapunov import solve_lyap_vec
@@ -120,12 +119,12 @@ def _rbf_spectral(order: int):
 _SPECTRAL_MAX_ORDER = 8
 
 
-@struct.dataclass
+@pytree.dataclass
 class RBF(SDEKernel):
     variance: Array = 1.0
     lengthscales: Array = 1.0
-    order: int = struct.field(pytree_node=False, default=3)
-    balancing_iter: int = struct.field(pytree_node=False, default=-1)
+    order: int = pytree.field(pytree_node=False, default=3)
+    balancing_iter: int = pytree.field(pytree_node=False, default=-1)
 
     @property
     def state_dim(self) -> int:
@@ -193,12 +192,10 @@ class RBF(SDEKernel):
     def transitions_m1_tl(self, dts: Array):
         """Time-last ``expm(dt·F) − I`` via the trace-time spectral form
         (see _rbf_spectral): elementwise exp/cos/sin in u = dt/ℓ on (T,)
-        lane planes — replaces the Padé expm1 path for order ≤ 8 at ~d²
+        planes — replaces the Padé expm1 path for order ≤ 8 at ~d²
         elementwise ops per step instead of the 13th-order Padé solve."""
         if self.order > _SPECTRAL_MAX_ORDER:
             return None
-        from parallel_gps_tpu.kernels.matern import _expm1_neg
-
         dtype = dts.dtype
         dim = self.order
         blocks = _rbf_spectral(self.order)
@@ -208,14 +205,14 @@ class RBF(SDEKernel):
         for alpha, beta, G, S in blocks:
             au = (-alpha) * u  # α < 0 (stable roots) → au ≥ 0
             if S is None:
-                em1 = _expm1_neg(au)
+                em1 = jnp.expm1(-au)
                 out = out + em1[None, None, :] * (
                     kap * jnp.asarray(G, dtype)
                 )[:, :, None]
             else:
                 bu = beta * u
                 cb = jnp.cos(bu)
-                em1c = _expm1_neg(au) * cb - 2.0 * jnp.sin(0.5 * bu) ** 2
+                em1c = jnp.expm1(-au) * cb - 2.0 * jnp.sin(0.5 * bu) ** 2
                 es = jnp.exp(-au) * jnp.sin(bu)
                 out = (
                     out
@@ -233,7 +230,7 @@ class RBF(SDEKernel):
         return jnp.moveaxis(m1, -1, 0)
 
     def transition_coeffs(self):
-        """dt-engine hook (see SDEKernel.transition_coeffs): the spectral
+        """Closed form (see SDEKernel.transition_coeffs): the spectral
         closed form with the κ similarity folded into per-block projector
         coefficient matrices.  Coefficient layout:
         [1/ℓ | per block: κ·G (d²) and, for conjugate pairs, κ·S (d²)];
@@ -241,8 +238,6 @@ class RBF(SDEKernel):
         from the parameter-independent F(1)."""
         if self.order > _SPECTRAL_MAX_ORDER:
             return None
-        from parallel_gps_tpu.kernels.matern import _expm1_neg
-
         dtype = config.default_float()
         dim = self.order
         blocks = _rbf_spectral(self.order)
@@ -270,12 +265,12 @@ class RBF(SDEKernel):
             for alpha, beta, offG, offS in meta:
                 au = (-alpha) * u
                 if offS is None:
-                    em1 = _expm1_neg(au)
+                    em1 = jnp.expm1(-au)
                     es = None
                 else:
                     bu = beta * u
                     cb = jnp.cos(bu)
-                    em1 = _expm1_neg(au) * cb - 2.0 * jnp.sin(0.5 * bu) ** 2
+                    em1 = jnp.expm1(-au) * cb - 2.0 * jnp.sin(0.5 * bu) ** 2
                     es = jnp.exp(-au) * jnp.sin(bu)
                 for i in range(dim):
                     for j in range(dim):

@@ -10,14 +10,15 @@ from __future__ import annotations
 import math
 
 import jax.numpy as jnp
-from flax import struct
 from jax import Array
 from jax.scipy.linalg import cho_factor, cho_solve
 
+from parallel_gps_tpu import pytree
 from parallel_gps_tpu.kernels.base import SDEKernel
+from parallel_gps_tpu.ops.linalg import mm
 
 
-@struct.dataclass
+@pytree.dataclass
 class GPR:
     ts: Array  # (N, 1)
     ys: Array  # (N, 1)
@@ -45,8 +46,8 @@ class GPR:
         Ks = self.kernel.dense(X, Xnew)  # (N, M)
         chol, lower = cho_factor(K, lower=True)
         alpha = cho_solve((chol, lower), Y)
-        mean = Ks.T @ alpha  # (M, 1)
+        mean = mm(Ks.T, alpha)  # (M, 1)
         v = cho_solve((chol, lower), Ks)
         Kss = self.kernel.dense(Xnew, Xnew)
-        var = jnp.diag(Kss - Ks.T @ v)[:, None]
+        var = jnp.diag(Kss - mm(Ks.T, v))[:, None]
         return mean, var

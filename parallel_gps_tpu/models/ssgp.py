@@ -16,22 +16,14 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 from jax import Array
 
-from parallel_gps_tpu.kalman.parallel import pkf, pkfs
+from parallel_gps_tpu import pytree
+from parallel_gps_tpu.kalman.parallel import pkfs
 from parallel_gps_tpu.kalman.sequential import kf, kfs
 from parallel_gps_tpu.kernels.base import SDEKernel
+from parallel_gps_tpu.ops.linalg import mm
 from parallel_gps_tpu.types import LGSSM, LGSSMTL
-
-
-def _is_concrete(x) -> bool:
-    """True when ``x`` is not being traced by an outer transform.  Uses the
-    supported jax.core.is_concrete when present (the Tracer class access
-    path is deprecated in newer JAX)."""
-    if hasattr(jax.core, "is_concrete"):
-        return not isinstance(x, jax.Array) or jax.core.is_concrete(x)
-    return not isinstance(x, jax.core.Tracer)  # pragma: no cover
 
 
 def merge_sorted(a: Array, b: Array, a_data, b_data):
@@ -61,35 +53,32 @@ def merge_sorted(a: Array, b: Array, a_data, b_data):
     return merged, payloads, is_b
 
 
-@struct.dataclass
+@pytree.dataclass
 class StateSpaceGP:
     ts: Array  # (T, 1) sorted time stamps
     ys: Array  # (T, 1) observations, NaN = missing
     kernel: SDEKernel
     noise_variance: Array
-    parallel: bool = struct.field(pytree_node=False, default=True)
+    parallel: bool = pytree.field(pytree_node=False, default=True)
     # Optional device mesh with a "time" axis: LML and predict_f route
     # through the time-axis-sharded two-level engines (parallel/sharded.py)
-    # — the pod-scale path, reachable from the model API like everything
+    # — the multi-device path, reachable from the model API like everything
     # else (the reference's entire user surface is the model object,
     # pssgp/model.py:58-117).  Static (part of the pytree treedef): one
     # compile per mesh, reused across hyperparameter values.
-    mesh: object = struct.field(pytree_node=False, default=None)
+    mesh: object = pytree.field(pytree_node=False, default=None)
     # Square-root (Cholesky-factor) engine: covariances carried as
-    # triangular factors, PSD by construction at any conditioning — the
-    # on-accelerator replacement for the reference's float64 stability
-    # axis (its d ≥ 12 sweeps run f64-only,
-    # /root/reference/experiments/toy_models/speed_and_stability.sh).
-    # Measured d=12 f32 envelope: the standard engines lose definiteness
-    # from T≈16k and NaN at 131k, the sqrt engine stays PSD and ~1e-3
-    # accurate (BASELINE.md round 5, results/envelope_d12.json).  ~2-3×
-    # the flops (QR triangularizations) — use for d ≳ 8 f32
+    # triangular factors, PSD by construction at any conditioning — an f32
+    # alternative to the reference's float64 stability axis (its d ≥ 12
+    # sweeps run f64-only).  At d=12 in f32 the standard engines lose
+    # definiteness at large T while this engine stays PSD; it costs ~2-3×
+    # the flops (QR triangularizations).  Use it for d ≳ 8 f32
     # COMPANION-FORM kernels (Matérn/RBF; rank-1 dispersion → quadrature
     # noise factors) at large T.  For Sum/Product composites the factor
     # fallback is eigh of the assembled planes, which is LESS accurate
-    # than the standard engines wherever those are still finite
-    # (results/stable_co2_probe.json) — prefer stable=False there.
-    stable: bool = struct.field(pytree_node=False, default=False)
+    # than the standard engines wherever those are still finite — prefer
+    # stable=False there, or float64, which the GPU runs natively.
+    stable: bool = pytree.field(pytree_node=False, default=False)
 
     @classmethod
     def create(
@@ -143,40 +132,21 @@ class StateSpaceGP:
             stable=stable,
         )
 
-    def _fused_engine_ok(self) -> bool:
-        """Whether the fused Pallas kernels apply: parallel engine, TPU
-        backend, d <= ``config.FUSED_MAX_D`` (default 8, the kernels'
-        Schur-recursion ceiling), and not disabled via
-        ``config.set_pallas_lml(False)``.
+    def _on_mesh(self, time_axis, *xs: Array):
+        """Constrain (T, 1) arrays to the mesh: time axis over
+        ``time_axis`` (a mesh axis name, or None for replicated)."""
+        from jax.sharding import NamedSharding, PartitionSpec
 
-        The round-3 TPU crossover table (BASELINE.md) measured the fused
-        engine 12-20x faster than the XLA time-last engine at d = 4/6/8
-        with both engines at the same f32 conditioning floor, so
-        auto-dispatch covers the full supported range;
-        ``config.set_fused_max_d(3)`` restores XLA for d > 3.
-
-        ``config.set_pallas_interpret(True)`` forces this dispatch on
-        non-TPU backends with interpret-mode kernels, giving the fused
-        branches below off-TPU test coverage."""
-        from parallel_gps_tpu import config
-
-        return (
-            self.parallel
-            and not self.stable
-            and config.PALLAS_LML
-            and (
-                jax.default_backend() == "tpu" or config.PALLAS_INTERPRET
-            )
-            and self.kernel.state_dim <= min(config.FUSED_MAX_D, 8)
-        )
+        sharding = NamedSharding(self.mesh, PartitionSpec(time_axis, None))
+        return tuple(jax.lax.with_sharding_constraint(x, sharding) for x in xs)
 
     def _make_model(self, ts: Array) -> LGSSM:
         R = jnp.reshape(self.noise_variance, (1, 1))
         # Parallel engine: build the SSM time-last (LGSSMTL) so the whole
-        # filter/smoother pipeline runs relayout-free on TPU — pkf/pkfs
-        # dispatch on the container type (kalman/parallel.py).  The
-        # time-last engine covers every state dim (Schur-recursed inverses
-        # for d > 3, kalman/timelast.py::_inv).
+        # filter/smoother pipeline runs relayout-free — pkf/pkfs dispatch on
+        # the container type (kalman/parallel.py).  The time-last engine
+        # covers every state dim (Schur-recursed inverses for d > 3,
+        # kalman/timelast.py::_inv).
         if self.parallel:
             return self.kernel.get_ssm_tl(ts, R)
         return self.kernel.get_ssm(ts, R)
@@ -184,45 +154,25 @@ class StateSpaceGP:
     def log_marginal_likelihood(self) -> Array:
         """LML of the data (reference: pssgp/model.py:113-117).
 
-        On the time-last fast path (parallel, d ≤ 3) this uses the
-        Fisher-identity custom VJP (kalman.timelast.lml_tl): gradients cost
-        one smoother pass instead of replaying the scan tree — ~10× faster
-        training/MCMC steps — and the forward runs the fused Pallas kernels
-        on TPU.
+        Engine dispatch, the same for ``predict_f``: ``stable`` → the
+        square-root engine; ``mesh`` → the time-axis-sharded time-last
+        engine; ``parallel`` → the time-last engine; else the sequential
+        engine.  On the time-last paths the gradient is the Fisher-identity
+        custom VJP (kalman.timelast.lml_tl): one smoother pass instead of
+        replaying the scan tree.
 
         Jitted with the model as a pytree argument, so the compiled program
         is reused across hyperparameter values and model instances — the
         role of the reference's pre-compiled ``tf.function`` signatures
-        (pssgp/model.py:71-84).  Under an outer ``jit``/``grad`` the inner
-        jit is free.
+        (pssgp/model.py:71-84).  Under an outer ``jit``/``grad``/``vmap``
+        the inner jit is free."""
+        return _lml_jit(self)
 
-        Batching: the fused kernels are wrapped in ``custom_vmap``
-        (kalman/pallas_scan.py), so vmapping this method over models/chains
-        dispatches to the batched-sublane kernels (batch on sublanes × time
-        on lanes) — ``config.set_pallas_lml(False)`` is no longer required
-        for batched MCMC (it remains as a manual escape hatch to the XLA
-        time-last engine)."""
-        return _lml_jit(self, self._fused_engine_ok())
-
-    def _shard_align(self, use_pallas: bool) -> int:
-        """Time-axis padding unit under a mesh: shards must divide T, and on
-        the pallas path each shard's local scan wants strip alignment."""
-        from parallel_gps_tpu.kalman.pallas_scan import strip_align
-
-        n_sh = self.mesh.shape["time"]
-        if not use_pallas:
-            return n_sh
-        return n_sh * strip_align(
-            self.kernel.state_dim, self.ts.dtype.itemsize
-        )
-
-    def _lml_impl(self, use_pallas: bool) -> Array:
+    def _lml_impl(self) -> Array:
         ts, ys = self.ts, self.ys
         if self.stable:
             # Square-root engine (kalman/sqrt.py): triangular-factor
-            # combines + quadrature-Gramian discretization factors —
-            # finite and PSD where the standard f32 engines lose
-            # definiteness (d ≳ 12 at large T; see the field docstring).
+            # combines + quadrature-Gramian discretization factors.
             # Gradients ride the square-root Fisher-identity VJP
             # (sqrt.sqrt_lml: backward = one sqrt smoother + factor-solve
             # formulas — autodiff through the QR combines would NaN on the
@@ -234,63 +184,24 @@ class StateSpaceGP:
                 ys,
             )
         if self.mesh is not None:
-            # Time-axis-sharded path: pad to the shard (and strip) alignment
+            # Time-axis-sharded path: pad to a multiple of the shard count
             # with exact no-op steps, then the distributed Fisher-VJP LML
-            # (forward = per-shard fused strip kernels on TPU + one tiny
-            # all_gather; backward = one sharded smoother pass).
+            # (forward = sharded filter + one tiny all_gather; backward =
+            # one sharded smoother pass).
             from parallel_gps_tpu.parallel.sharded import sharded_lml_tl
 
-            ts, ys = _align_pad(
-                ts, ys, self.kernel.state_dim,
-                align=self._shard_align(use_pallas), force=True,
+            # Time axis over the mesh, so the discretization and element
+            # construction before the sharded scans are split too.
+            ts, ys = self._on_mesh(
+                "time", *_align_pad(ts, ys, self.mesh.shape["time"])
             )
-            ssm = self._make_model(ts)
-            return sharded_lml_tl(
-                ssm, ys, self.mesh, "time",
-                engine="pallas" if use_pallas else "xla",
-            )
-        if use_pallas:
-            tc = self.kernel.transition_coeffs()
-            if tc is not None:
-                # dt-engine: kernels with elementwise closed-form
-                # transitions (Matérn family, RBF order ≤ 8, and their
-                # Sum/Product/Periodic composites) never materialize the
-                # (d, d, T) SSM planes — F/Q are rebuilt in registers from
-                # the dt plane, and gradients ride the fused Fisher-tail
-                # kernel (kalman/pallas_dt.py::_dt_fisher_kernel).
-                # Measured at N=10M d=3 (results/dt_10m.json, round 5):
-                # LML eval 31.9 ms vs the plane engine's 35 ms +
-                # discretization on top; the full value_and_grad training
-                # step is 43.8 ms vs 137.4 ms on the plane path (3.1×).
-                from parallel_gps_tpu.kalman.pallas_dt import (
-                    dt_strip_align,
-                    lml_dt,
-                )
-
-                ts, ys = _align_pad(
-                    ts, ys, self.kernel.state_dim,
-                    align=dt_strip_align(
-                        self.kernel.state_dim, ts.dtype.itemsize
-                    ),
-                )
-                return lml_dt(
-                    self.kernel, ts, jnp.reshape(self.noise_variance, (1, 1)),
-                    ys,
-                )
-            # Born-aligned inputs: pad ts/ys so the strip kernels' pack
-            # stage copies nothing (dt=0 ⇒ identity transitions, NaN ⇒
-            # masked — LML at real positions is unchanged).  Measured
-            # ~30% of LML wall at N=10M (kalman/pallas_scan.py::strip_align).
-            ts, ys = _align_pad(ts, ys, self.kernel.state_dim)
+            return sharded_lml_tl(self._make_model(ts), ys, self.mesh, "time")
         ssm = self._make_model(ts)
         if isinstance(ssm, LGSSMTL):
             from parallel_gps_tpu.kalman.timelast import lml_tl
 
-            return lml_tl(ssm, ys, use_pallas)
-        if self.parallel:
-            _, _, ell = pkf(ssm, ys, return_loglikelihood=True)
-        else:
-            _, _, ell = kf(ssm, ys, return_loglikelihood=True)
+            return lml_tl(ssm, ys)
+        _, _, ell = kf(ssm, ys, return_loglikelihood=True)
         return ell
 
     # Alias matching the reference method name (pssgp/model.py:113).
@@ -313,7 +224,8 @@ class StateSpaceGP:
         count — the static-shape replacement for the reference's dynamic-T
         smoother signature (pssgp/model.py:73-84).  Padding duplicates the
         last query time with a NaN observation, which leaves the posterior at
-        every real point untouched (dt=0 ⇒ F=I, Q=0, no update)."""
+        every real point untouched (dt=0 ⇒ F=I, Q=0, no update).  The engine
+        is chosen as in :meth:`log_marginal_likelihood`."""
         del full_cov
         Xnew = jnp.asarray(Xnew, self.ts.dtype).reshape(-1, 1)
         m = Xnew.shape[0]
@@ -326,30 +238,30 @@ class StateSpaceGP:
         if mb != m:
             pad = jnp.broadcast_to(Xnew[-1:], (mb - m, 1))
             Xnew = jnp.concatenate([Xnew, pad], axis=0)
-        # The fused Pallas engine is forward-only (no VJP): use it only when
-        # nothing here is being traced by an outer transform (grad/vmap of
-        # predict_f falls back to the differentiable, batchable XLA engine).
-        use_pallas = self._fused_engine_ok() and all(
-            _is_concrete(leaf) for leaf in jax.tree.leaves((self, Xnew))
-        )
-        mean, var = _predict_f_jit(self, Xnew, use_pallas)
+        mean, var = _predict_f_jit(self, Xnew)
         return mean[:m], var[:m]
 
-    def _predict_f_impl(self, Xnew: Array, use_pallas: bool = False):
+    def _predict_f_impl(self, Xnew: Array):
         # Sort queries (and later unsort results): unlike the reference, which
         # silently assumes sorted Xnew, unsorted queries are handled correctly.
-        order = jnp.argsort(Xnew[:, 0])
+        order = _argsort(Xnew[:, 0])
         Xsorted = Xnew[order]
         nan_ys = jnp.full((Xnew.shape[0], self.ys.shape[1]), jnp.nan, self.ys.dtype)
+        ts, ys = self.ts, self.ys
+        if self.mesh is not None:
+            # Merge replicated: the searchsorted + scatters of the merge
+            # partition badly over a sharded time axis (16.8 s vs 27 ms at
+            # N=1M on 4 virtual CPU devices).
+            ts, ys = self._on_mesh(None, ts, ys)
         all_ts, (all_ys,), is_query = merge_sorted(
-            self.ts[:, 0], Xsorted[:, 0], (self.ys,), (nan_ys,)
+            ts[:, 0], Xsorted[:, 0], (ys,), (nan_ys,)
         )
         all_ts = all_ts[:, None]
         if self.stable:
             # Square-root smoothing over the merged train+query series: the
             # posterior variance is read off the factor as ‖Nᵀ Hᵀ‖² ≥ 0 —
             # no negative query variances at any conditioning (the d=12
-            # standard-engine failure mode, results/envelope_d12.json).
+            # f32 standard-engine failure mode).
             from parallel_gps_tpu.kalman.sqrt import sqrt_pkfs_kernel
 
             H_mat = self.kernel.get_sde().H
@@ -359,75 +271,47 @@ class StateSpaceGP:
             )
             q_idx = jnp.nonzero(is_query, size=Xnew.shape[0])[0]
             sms_q, sNs_q = sms[q_idx], sNs[q_idx]
-            mean = (H_mat[None] @ sms_q[..., None])[..., 0]
-            HN = H_mat[None] @ sNs_q  # (M, 1, d)
+            mean = mm(H_mat[None], sms_q[..., None])[..., 0]
+            HN = mm(H_mat[None], sNs_q)  # (M, 1, d)
             var = jnp.sum(HN * HN, axis=-1)  # (M, 1)
-            inv_order = jnp.argsort(order)
+            inv_order = _inverse_permutation(order)
             return mean[inv_order], var[inv_order]
         if self.mesh is not None:
             # Time-axis-sharded smoothing over the merged train+query series
             # (see _lml_impl for the padding semantics).
             from parallel_gps_tpu.parallel.sharded import sharded_pkfs_tl
 
-            all_ts, all_ys = _align_pad(
-                all_ts, all_ys, self.kernel.state_dim,
-                align=self._shard_align(use_pallas), force=True,
+            all_ts, all_ys = self._on_mesh(
+                "time", *_align_pad(all_ts, all_ys, self.mesh.shape["time"])
             )
             ssm = self._make_model(all_ts)
-            H_mat = ssm.H
-            g_tl, L_tl = sharded_pkfs_tl(
-                ssm, all_ys, self.mesh, "time",
-                engine="pallas" if use_pallas else "xla",
-            )
-            sms = jnp.moveaxis(g_tl, -1, 0)
-            sPs = jnp.moveaxis(L_tl, -1, 0)
-        elif use_pallas and self.kernel.transition_coeffs() is not None:
-            # dt-engine smoothing over the merged series (see _lml_impl):
-            # prediction takes no gradients, so the forward-only fused path
-            # applies; F/Q rebuilt in registers from the merged dt plane.
-            from parallel_gps_tpu.kalman.pallas_dt import (
-                dt_strip_align,
-                pkfs_dt,
-            )
-
-            all_ts, all_ys = _align_pad(
-                all_ts, all_ys, self.kernel.state_dim,
-                align=dt_strip_align(
-                    self.kernel.state_dim, all_ts.dtype.itemsize
-                ),
-            )
-            H_mat = self.kernel.get_sde().H
-            g_tl, L_tl = pkfs_dt(
-                self.kernel, all_ts,
-                jnp.reshape(self.noise_variance, (1, 1)), all_ys,
-            )
+            g_tl, L_tl = sharded_pkfs_tl(ssm, all_ys, self.mesh, "time")
             sms = jnp.moveaxis(g_tl, -1, 0)
             sPs = jnp.moveaxis(L_tl, -1, 0)
         else:
-            if use_pallas:
-                # Born-aligned inputs for the strip kernels (see _lml_impl);
-                # the q_idx gather below only reads real positions, so the
-                # padded tail never surfaces.
-                all_ts, all_ys = _align_pad(
-                    all_ts, all_ys, self.kernel.state_dim
-                )
             ssm = self._make_model(all_ts)
-            H_mat = ssm.H
-            if self.parallel:
-                # Prediction takes no gradients, so the forward-only fused
-                # Pallas engine is usable — round 1 left predict on the XLA
-                # engine (~14x slower at T=10^6).
-                sms, sPs = pkfs(
-                    ssm, all_ys, engine="pallas" if use_pallas else "auto"
-                )
-            else:
-                sms, sPs = kfs(ssm, all_ys)
+            sms, sPs = pkfs(ssm, all_ys) if self.parallel else kfs(ssm, all_ys)
+        H_mat = ssm.H
         q_idx = jnp.nonzero(is_query, size=Xnew.shape[0])[0]
         sms_q, sPs_q = sms[q_idx], sPs[q_idx]
-        mean = (H_mat[None] @ sms_q[..., None])[..., 0]  # (M, 1)
-        var = (H_mat[None] @ sPs_q @ H_mat.T)[..., 0]  # (M, 1)
-        inv_order = jnp.argsort(order)
+        mean = mm(H_mat[None], sms_q[..., None])[..., 0]  # (M, 1)
+        var = mm(mm(H_mat[None], sPs_q), H_mat.T)[..., 0]  # (M, 1)
+        inv_order = _inverse_permutation(order)
         return mean[inv_order], var[inv_order]
+
+
+def _argsort(x: Array) -> Array:
+    """Stable argsort of a 1-D array, with int32 indices."""
+    idx = jnp.arange(x.shape[0], dtype=jnp.int32)
+    return jax.lax.sort((x, idx), num_keys=1, is_stable=True)[1]
+
+
+def _inverse_permutation(p: Array) -> Array:
+    """``argsort(p)`` of a permutation, as one scatter.  Sorting a
+    permutation under x64 (int64 keys) makes XLA's GPU sort simplifier emit
+    an ill-typed scatter (s32 init for an s64 reduction) that the HLO
+    verifier rejects; the explicit scatter avoids the sort altogether."""
+    return jnp.zeros_like(p).at[p].set(jnp.arange(p.shape[0], dtype=p.dtype))
 
 
 def _bucket_size(m: int, min_bucket: int = 16) -> int:
@@ -437,26 +321,14 @@ def _bucket_size(m: int, min_bucket: int = 16) -> int:
     return 1 << (m - 1).bit_length()
 
 
-def _align_pad(
-    ts: Array,
-    ys: Array,
-    state_dim: int,
-    align: int | None = None,
-    force: bool = False,
-):
-    """End-pad (ts, ys) so the time axis is a multiple of the strip
-    kernels' alignment: repeated last time (dt=0 ⇒ exact identity
-    transitions) and NaN observations (masked out).  No-op when already
-    aligned or when T is below one alignment unit (small problems don't
-    pay the pack-copy cost this avoids — see pallas_scan.strip_align);
-    ``force`` pads regardless (sharded paths REQUIRE divisibility)."""
-    from parallel_gps_tpu.kalman.pallas_scan import strip_align
-
-    if align is None:
-        align = strip_align(state_dim, ts.dtype.itemsize)
+def _align_pad(ts: Array, ys: Array, align: int):
+    """End-pad (ts, ys) so the time axis is a multiple of ``align`` (the
+    shard count — the sharded engines require divisibility): repeated last
+    time (dt=0 ⇒ exact identity transitions) and NaN observations (masked
+    out), so LML and moments at real positions are unchanged."""
     T = ts.shape[0]
     Tp = -(-T // align) * align
-    if Tp == T or (T < align and not force):
+    if Tp == T:
         return ts, ys
     ts_p = jnp.concatenate(
         [ts, jnp.broadcast_to(ts[-1:], (Tp - T,) + ts.shape[1:])], axis=0
@@ -467,8 +339,8 @@ def _align_pad(
     return ts_p, ys_p
 
 
-# Module-level jitted method bodies: StateSpaceGP is a flax.struct pytree, so
-# the model itself is a jit argument — one compile per (shapes, engine), then
-# reused across instances and hyperparameter values.
-_lml_jit = jax.jit(StateSpaceGP._lml_impl, static_argnums=(1,))
-_predict_f_jit = jax.jit(StateSpaceGP._predict_f_impl, static_argnums=(2,))
+# Module-level jitted method bodies: StateSpaceGP is a pytree dataclass, so
+# the model itself is a jit argument — one compile per (shapes, static
+# fields), then reused across instances and hyperparameter values.
+_lml_jit = jax.jit(StateSpaceGP._lml_impl)
+_predict_f_jit = jax.jit(StateSpaceGP._predict_f_impl)

@@ -8,8 +8,8 @@ process noise has the closed form
 
     Q_k = P∞ − A_k P∞ A_kᵀ,   A_k = expm(dt_k · F),
 
-which needs only the d×d exponential — half the FLOPs and better conditioned
-on TPU.  ``discretize`` uses this identity; ``discretize_mfd`` keeps the
+which needs only the d×d exponential — half the FLOPs and better
+conditioned.  ``discretize`` uses this identity; ``discretize_mfd`` keeps the
 general matrix-fraction path as a cross-checked oracle (tests assert the two
 agree for every kernel).
 """
@@ -19,7 +19,7 @@ import jax.numpy as jnp
 from jax import Array
 
 from parallel_gps_tpu.ops.expm import expm1_dt_batched, expm1_dt_tl, expm_pade13
-from parallel_gps_tpu.ops.linalg import symmetrize
+from parallel_gps_tpu.ops.linalg import mm, symmetrize
 from parallel_gps_tpu.types import LGSSM, LGSSMTL, ContinuousDiscreteModel
 
 
@@ -63,9 +63,9 @@ def discretize(
     d = sde.F.shape[0]
     Fs = Am1 + jnp.eye(d, dtype=Am1.dtype)
     P0 = symmetrize(sde.P0)
-    AP = Am1 @ P0
+    AP = mm(Am1, P0)
     Qs = symmetrize(
-        -(AP + jnp.swapaxes(AP, -1, -2) + AP @ jnp.swapaxes(Am1, -1, -2))
+        -(AP + jnp.swapaxes(AP, -1, -2) + mm(AP, jnp.swapaxes(Am1, -1, -2)))
     )
     return LGSSM(P0, Fs, Qs, sde.H, jnp.asarray(R).reshape(1, 1))
 
@@ -117,10 +117,10 @@ def discretize_mfd(
     n = sde.F.shape[0]
     dts = _dts(ts, t0)
 
-    LQL = sde.L @ sde.Q @ sde.L.T
+    LQL = mm(mm(sde.L, sde.Q), sde.L.T)
     Phi = jnp.block([[sde.F, LQL], [jnp.zeros_like(sde.F), -sde.F.T]])
 
     M = expm_pade13(dts[:, None, None] * Phi[None])
     Fs = M[:, :n, :n]  # block-triangular structure: equals expm(dt F)
-    Qs = M[:, :n, n:] @ jnp.swapaxes(Fs, -1, -2)
+    Qs = mm(M[:, :n, n:], jnp.swapaxes(Fs, -1, -2))
     return LGSSM(sde.P0, Fs, symmetrize(Qs), sde.H, jnp.asarray(R).reshape(1, 1))

@@ -1,4 +1,4 @@
-"""Batched matrix exponential, built for TPU compilation.
+"""Batched matrix exponential, built for XLA compilation.
 
 ``jax.scipy.linalg.expm`` under ``vmap`` is hostile to XLA: its norm-dependent
 Padé-degree selection (``lax.cond``) lowers to computing *every* branch per
@@ -20,7 +20,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 from jax import Array
 
-from parallel_gps_tpu.ops.linalg import solve_small
+from parallel_gps_tpu.ops.linalg import mm, solve_small
 
 # Padé-13 coefficients (Higham, "The scaling and squaring method for the
 # matrix exponential revisited", 2005).
@@ -68,21 +68,21 @@ def expm1_pade13(A: Array, max_squarings: int = MAX_SQUARINGS) -> Array:
     k = jnp.clip(k, 0, max_squarings)
     A = A * jnp.exp2(-k)[..., None, None].astype(dtype)
 
-    A2 = A @ A
-    A4 = A2 @ A2
-    A6 = A2 @ A4
+    A2 = mm(A, A)
+    A4 = mm(A2, A2)
+    A6 = mm(A2, A4)
     b = _B13
     W1 = b[13] * A6 + b[11] * A4 + b[9] * A2
     W2 = b[7] * A6 + b[5] * A4 + b[3] * A2 + b[1] * eye
-    U = A @ (A6 @ W1 + W2)
+    U = mm(A, mm(A6, W1) + W2)
     Z1 = b[12] * A6 + b[10] * A4 + b[8] * A2
-    V = A6 @ Z1 + b[6] * A6 + b[4] * A4 + b[2] * A2 + b[0] * eye
+    V = mm(A6, Z1) + b[6] * A6 + b[4] * A4 + b[2] * A2 + b[0] * eye
 
     Em1 = solve_small(V - U, 2.0 * U)
 
     # Masked stable squaring of the minus-identity form.
     for j in range(max_squarings):
-        sq = Em1 @ Em1 + 2.0 * Em1
+        sq = mm(Em1, Em1) + 2.0 * Em1
         Em1 = jnp.where((j < k)[..., None, None], sq, Em1)
     return Em1
 
@@ -96,13 +96,11 @@ def expm_pade13(A: Array, max_squarings: int = MAX_SQUARINGS) -> Array:
 def expm1_dt_tl(F: Array, dts: Array, max_squarings: int = MAX_SQUARINGS) -> Array:
     """``expm(dt_k · F) − I`` on TIME-LAST (d, d, T) planes.
 
-    The batched (T, d, d) path pads every tiny matrix to the (8, 128)
-    register tile — a 28× memory expansion at d=6 that OOMs N=10⁶ RBF
-    discretization outright (64 GB of HLO temps for 2.3 GB of data).  Here
-    the time axis IS the lane axis: matmuls are broadcast-multiply-reduce
-    over (d, d, T) planes and the Padé solve uses the Schur-recursed
-    time-last inverse (kalman/timelast._inv), so peak memory is ~10 d²·T
-    planes and every op runs at full lane utilization.  Same cancellation-
+    The batched (T, d, d) layout keeps every tiny matrix as its own padded
+    tile in the compiler's layouts.  Here the time axis is the long one:
+    matmuls are broadcast-multiply-reduce over (d, d, T) planes and the Padé
+    solve uses the Schur-recursed time-last inverse (kalman/timelast._inv),
+    so peak memory is ~10 d²·T planes of elementwise work.  Same cancellation-
     free minus-identity algebra as :func:`expm1_pade13`.
     """
     from parallel_gps_tpu.kalman.timelast import _inv, _mm

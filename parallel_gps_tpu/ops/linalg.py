@@ -8,8 +8,18 @@ from __future__ import annotations
 
 import math
 
+import jax
 import jax.numpy as jnp
 from jax import Array
+
+
+def mm(a: Array, b: Array) -> Array:
+    """``a @ b`` at full float32 precision, batched over leading dims.
+
+    At the default precision XLA may run a float32 matmul on a GPU in TF32
+    (10 mantissa bits), which is too coarse for covariance algebra.  Every
+    product here is (d, d)-sized, so full precision costs nothing."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def symmetrize(P: Array) -> Array:
@@ -27,9 +37,9 @@ def inv_small(M: Array) -> Array:
 
     The associative-scan combine solves (d, d) systems with d = SDE state
     dimension — typically 1-3 (Matérn family).  Batched LU over (T, d, d) is
-    latency-bound on TPU (no MXU use, serialized pivoting); the adjugate
-    form is pure elementwise VPU work that XLA fuses into the surrounding
-    combine.  Falls back to LU for d > 3 (RBF/Periodic/composite kernels).
+    latency-bound (serialized pivoting on tiny matrices); the adjugate form
+    is pure elementwise work that XLA fuses into the surrounding combine.
+    Falls back to LU for d > 3 (RBF/Periodic/composite kernels).
     """
     d = M.shape[-1]
     if d == 1:
@@ -77,7 +87,7 @@ def inv_small(M: Array) -> Array:
 def solve_small(M: Array, B: Array) -> Array:
     """``inv(M) @ B`` with the closed-form fast path for d ≤ 3."""
     if M.shape[-1] <= 3:
-        return inv_small(M) @ B
+        return mm(inv_small(M), B)
     return jnp.linalg.solve(M, B)
 
 

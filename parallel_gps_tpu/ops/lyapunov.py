@@ -11,13 +11,13 @@ from __future__ import annotations
 import jax.numpy as jnp
 from jax import Array
 
-from parallel_gps_tpu.ops.linalg import symmetrize
+from parallel_gps_tpu.ops.linalg import mm, symmetrize
 
 
 def solve_lyap_vec(F: Array, L: Array, Q: Array) -> Array:
     dim = F.shape[0]
     eye = jnp.eye(dim, dtype=F.dtype)
     K = jnp.kron(eye, F) + jnp.kron(F, eye)
-    rhs = (L @ Q @ L.T).reshape(-1, 1)
+    rhs = mm(mm(L, Q), L.T).reshape(-1, 1)
     Pinf = jnp.linalg.solve(K, rhs).reshape(dim, dim)
     return -symmetrize(Pinf)

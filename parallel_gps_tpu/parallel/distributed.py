@@ -7,19 +7,19 @@ across hosts — SURVEY §7 PR5 / the BASELINE.json north star (N=10M over ≥2
 hosts at ≥70% scaling efficiency).  It provides:
 
   - :func:`initialize` — ``jax.distributed.initialize`` wrapper that is a
-    safe no-op for single-process runs (so the same script works on a laptop,
-    one TPU VM, or a pod slice launched once per host);
+    safe no-op for single-process runs (so the same script works on one
+    machine or on several hosts launched once per host);
   - :func:`make_process_mesh` — a mesh over ALL processes' devices with a
     ``time`` axis (optionally batch × time), laid out so the time axis's
     neighboring shards sit on neighboring devices (the per-scan collective is
-    one tiny all_gather of boundary elements — it rides ICI within a slice
-    and only crosses DCN at slice boundaries);
+    one tiny all_gather of boundary elements — it stays inside a host and
+    only crosses the network at host boundaries);
   - :func:`pad_time_axis` — the T-divisibility helper the sharded engines'
     layout contract demands (parallel/sharded.py:14-16): pad with exact
     no-op steps (F=I, Q=0, y=NaN — identity elements of both scans);
   - :func:`scan_efficiency_report` — measures local-scan vs distributed-scan
     time on the current mesh and reports the collective payload, runnable on
-    a virtual CPU mesh today and a real pod unchanged.
+    a virtual CPU mesh and on real devices unchanged.
 """
 from __future__ import annotations
 
@@ -43,11 +43,11 @@ def initialize(
 ) -> int:
     """Initialize JAX's distributed runtime; returns the process count.
 
-    No-op (returns 1) when no coordinator is configured and none of the
-    standard cluster environment variables are present — single-process
-    scripts run unchanged.  On a pod slice, call once per host before any
-    device use; with TPU metadata available all arguments are auto-detected
-    (``jax.distributed.initialize()`` with no arguments).
+    No-op (returns 1) when no coordinator is configured and no coordinator
+    environment variable is present — single-process scripts run
+    unchanged.  On several hosts, call once per host before any device use,
+    with ``coordinator_address`` (``host:port``), ``num_processes`` and
+    ``process_id``.
     """
     import os
 
@@ -56,12 +56,7 @@ def initialize(
         return jax.process_count()
     cluster_env = any(
         v in os.environ
-        for v in (
-            "COORDINATOR_ADDRESS",
-            "JAX_COORDINATOR_ADDRESS",
-            "TPU_WORKER_HOSTNAMES",
-            "MEGASCALE_COORDINATOR_ADDRESS",
-        )
+        for v in ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS")
     )
     if coordinator_address is None and not cluster_env:
         return 1
@@ -86,9 +81,10 @@ def make_process_mesh(
     """Mesh over every device of every process: (batch × time).
 
     Device order follows ``jax.devices()`` (process-major), so consecutive
-    time shards live on the same host's chips first — boundary-element
-    exchanges stay on ICI except at host boundaries, which is the layout the
-    two-level scan wants (one element crosses DCN per host pair, per scan).
+    time shards live on the same host's devices first — boundary-element
+    exchanges stay inside a host except at host boundaries, which is the
+    layout the two-level scan wants (one element crosses the network per
+    host pair, per scan).
     """
     devs = jax.devices()
     n = len(devs)
@@ -152,9 +148,6 @@ def scan_efficiency_report(
     time_axis: str = "time",
     dtype=jnp.float32,
     reps: int = 5,
-    engine: str = "xla",
-    block: int | None = None,
-    interpret: bool = False,
 ) -> dict:
     """Measure distributed-scan overhead on ``mesh``: wall time of the
     sharded filter (local scans + boundary-element all_gather + prefix
@@ -164,15 +157,11 @@ def scan_efficiency_report(
     ``efficiency`` is the weak-scaling proxy t_local / t_sharded: the
     fraction of the distributed wall spent doing useful local scan work.
     On a virtual CPU mesh the collectives are memcpys, so this measures the
-    algorithmic overhead (fix-up pass + prefix recompute); on real hardware
-    the same harness captures ICI/DCN latency.  Results feed BASELINE.md's
-    scaling-efficiency row.
+    algorithmic overhead (fix-up pass + prefix recompute); on real devices
+    the same harness captures interconnect latency.
 
     ``d``: 1–3 use the Matérn family; d > 3 uses RBF(order=d) — the sharded
-    combine runs the Schur-recursed d-generic operator there.  ``engine``
-    as in sharded_pkf_tl ('pallas' measures the fused strip kernels per
-    shard with the prefix folded into their apply pass; TPU only unless
-    ``interpret``)."""
+    combine runs the Schur-recursed d-generic operator there."""
     from parallel_gps_tpu.kalman.timelast import (
         _filtering_elements_from_planes,
         filtering_identity_tl,
@@ -180,7 +169,7 @@ def scan_efficiency_report(
         kogge_stone_scan_tl,
     )
     from parallel_gps_tpu.kernels import RBF, Matern12, Matern32, Matern52
-    from parallel_gps_tpu.parallel.sharded import _resolve_engine, sharded_pkf_tl
+    from parallel_gps_tpu.parallel.sharded import sharded_pkf_tl
 
     kernel_cls = {1: Matern12, 2: Matern32, 3: Matern52}.get(d)
     if kernel_cls is not None:
@@ -224,42 +213,21 @@ def scan_efficiency_report(
         jax.block_until_ready(out)
         return (time.perf_counter() - t0) / reps
 
-    eng = _resolve_engine(engine)
-    sharded = jax.jit(
-        lambda s, y: sharded_pkf_tl(
-            s, y, mesh, axis=time_axis,
-            engine=eng, block=block, interpret=interpret,
-        )
-    )
+    sharded = jax.jit(lambda s, y: sharded_pkf_tl(s, y, mesh, axis=time_axis))
     t_sharded = _timed(sharded, ssm, ys)
 
     # Pure local scan at the per-shard size (the useful-work denominator),
-    # on the SAME engine the sharded path runs per shard.
+    # on the same engine the sharded path runs per shard.
     T_loc = T // n_shards
     ssm_loc = jax.tree.map(
         lambda x: x[..., :T_loc] if x.ndim and x.shape[-1] == T else x, ssm
     )
 
-    if eng == "pallas":
-        from parallel_gps_tpu.kalman.pallas_scan import (
-            pick_strip_block,
-            strip_filter,
+    def local(s, y):
+        e = _filtering_elements_from_planes(s.P0, s.Fs, s.Qs, s.H, s.R, y)
+        return kogge_stone_scan_tl(
+            filtering_operator_tl, e, filtering_identity_tl(d, dtype)
         )
-
-        blk = block or pick_strip_block(d, jnp.dtype(dtype).itemsize)
-
-        def local(s, y):
-            return strip_filter(
-                s.Fs, s.Qs, s.P0, s.H, s.R, y, block=blk, interpret=interpret
-            )
-
-    else:
-
-        def local(s, y):
-            e = _filtering_elements_from_planes(s.P0, s.Fs, s.Qs, s.H, s.R, y)
-            return kogge_stone_scan_tl(
-                filtering_operator_tl, e, filtering_identity_tl(d, dtype)
-            )
 
     t_local = _timed(jax.jit(local), ssm_loc, ys[:T_loc])
 
@@ -271,7 +239,6 @@ def scan_efficiency_report(
         "n_shards": int(n_shards),
         "T": int(T),
         "d": int(d),
-        "engine": eng,
         "t_sharded_s": t_sharded,
         "t_local_shard_s": t_local,
         "efficiency": t_local / t_sharded if t_sharded > 0 else float("nan"),

@@ -3,7 +3,7 @@
 This is the SSGP analogue of ring-attention for sequence scaling
 (SURVEY.md §5 "long-context"): the time axis is sharded over a mesh axis, each
 device runs a local XLA associative scan over its shard, the per-shard totals
-are exchanged with one ``all_gather`` (P tiny (d,d) elements riding ICI), every
+are exchanged with one ``all_gather`` (P tiny (d,d) elements), every
 device computes the exclusive prefix of the totals redundantly (P is small),
 and finally combines its incoming prefix into its local results — a
 distributed Blelloch scan with O(log(T/P)) local span + O(1) collectives.
@@ -110,9 +110,9 @@ def sharded_associative_scan_tl(
     reverse: bool = False,
 ):
     """Time-last counterpart of :func:`sharded_associative_scan`: the global
-    time axis is the LAST axis of every leaf (the TPU-native layout of
-    kalman.timelast — full 128-lane utilization per shard), sharded over mesh
-    axis ``axis_name``.  Must be called inside ``shard_map``.
+    time axis is the LAST axis of every leaf (the layout of
+    kalman.timelast), sharded over mesh axis ``axis_name``.  Must be called
+    inside ``shard_map``.
     """
     from parallel_gps_tpu.kalman.timelast import kogge_stone_scan_tl
 

@@ -5,8 +5,8 @@ path: shard the T axis of the LGSSM and observations over a mesh axis
 (``"time"``), construct scan elements as embarrassingly-parallel per-timestep
 work (GSPMD partitions it from the sharding annotations), and run the
 associative scans through :func:`sharded_associative_scan` inside
-``shard_map`` — one tiny ``all_gather`` of per-shard totals per scan, riding
-ICI within a slice and DCN across slices.
+``shard_map`` — one tiny ``all_gather`` of per-shard totals per scan over
+the device interconnect.
 
 Everything is differentiable end-to-end, so LML gradients for hyperparameter
 optimization work across hosts.
@@ -35,7 +35,7 @@ from parallel_gps_tpu.kalman.parallel import (
     smoothing_operator,
     _mv,
 )
-from parallel_gps_tpu.ops.linalg import mvn_logpdf
+from parallel_gps_tpu.ops.linalg import mm, mvn_logpdf
 from parallel_gps_tpu.parallel.scan import (
     sharded_associative_scan,
     sharded_associative_scan_tl,
@@ -113,9 +113,9 @@ def sharded_pkf(
     prev_ms = jnp.concatenate([m0[None], fms[:-1]], axis=0)
     prev_Ps = jnp.concatenate([P0[None], fPs[:-1]], axis=0)
     mps = _mv(Fs, prev_ms)
-    Pps = Fs @ prev_Ps @ jnp.swapaxes(Fs, -1, -2) + Qs
+    Pps = mm(mm(Fs, prev_Ps), jnp.swapaxes(Fs, -1, -2)) + Qs
     obs_means = _mv(H[None], mps)
-    obs_covs = H[None] @ Pps @ H.T + R
+    obs_covs = mm(mm(H[None], Pps), H.T) + R
     logprobs = mvn_logpdf(y, obs_means, obs_covs)
     ell = jnp.sum(jnp.where(mask, logprobs, 0.0))
     return fms, fPs, ell
@@ -234,20 +234,20 @@ def sharded_batched_pkf_lml(
         [jnp.broadcast_to(P0, (B, 1, d, d)), fPs[:, :-1]], axis=1
     )
     mps = _mv(Fs[None], prev_ms)
-    Pps = Fs[None] @ prev_Ps @ jnp.swapaxes(Fs, -1, -2)[None] + Qs[None]
+    Pps = mm(mm(Fs[None], prev_Ps), jnp.swapaxes(Fs, -1, -2)[None]) + Qs[None]
     obs_means = _mv(H[None, None], mps)
-    obs_covs = H[None, None] @ Pps @ H.T + R
+    obs_covs = mm(mm(H[None, None], Pps), H.T) + R
     logprobs = mvn_logpdf(y, obs_means, obs_covs)
     return jnp.sum(jnp.where(mask, logprobs, 0.0), axis=1)
 
 
 # --------------------------------------------------------------------------
-# Time-last (LGSSMTL) sharded engines: the TPU-native layout per shard.
+# Time-last (LGSSMTL) sharded engines: the fast-path layout per shard.
 #
-# The generic engines above shard (T, d, d) elements; on TPU that layout
-# wastes >95% of every vector register (see kalman/timelast.py).  These run
-# the SAME two-level distributed scan but with time-last planes, so each
-# shard's local scan runs at the single-chip fast-path speed.  Element
+# The generic engines above shard (T, d, d) elements, whose combines are
+# batches of tiny matrix products (see kalman/timelast.py).  These run the
+# SAME two-level distributed scan but with time-last planes, so each
+# shard's local scan is the single-device fast path.  Element
 # construction and the log-likelihood stay OUTSIDE shard_map — they are
 # elementwise, so GSPMD partitions them from the sharding annotations (the
 # one-step shift in the likelihood becomes a collective-permute).
@@ -260,40 +260,18 @@ def _tl_specs(tree_example, axis: str):
     )
 
 
-def _resolve_engine(engine: str) -> str:
-    """'auto' → the fused strip kernels on TPU, the XLA Kogge-Stone engine
-    elsewhere (the strip kernels are Mosaic-only; interpret mode is for
-    tests).  The XLA engine is also the differentiable one — ``auto`` is
-    only used on forward paths; gradient callers go through
-    :func:`sharded_lml_tl` (Fisher VJP) or request engine='xla'."""
-    if engine == "auto":
-        return "pallas" if jax.devices()[0].platform == "tpu" else "xla"
-    if engine not in ("xla", "pallas"):
-        raise ValueError(f"engine must be auto|xla|pallas, got {engine!r}")
-    return engine
-
-
 def sharded_pkf_tl(
     lgssm_tl,
     observations: Array,
     mesh: Mesh,
     axis: str = "time",
     return_loglikelihood: bool = False,
-    engine: str = "xla",
-    block: int | None = None,
-    interpret: bool = False,
 ):
     """Time-axis-sharded parallel Kalman filter on an LGSSMTL.
 
     Returns time-last moments (b (d, T), C (d, d, T)[, ell]); T must be
     divisible by the mesh axis size (pad with NaN observations upstream).
-
-    ``engine='pallas'`` (or 'auto' on TPU) runs each shard's local scan
-    through the fused strip kernels (kalman/pallas_scan.py) with the
-    incoming cross-shard prefix folded into their apply pass — single-chip
-    kernel speed per shard plus one tiny all_gather, and no separate
-    fix-up pass (VERDICT r2 items 2/5).  The pallas path is forward-only;
-    'xla' (default) stays differentiable end-to-end.
+    Differentiable end-to-end.
     """
     from parallel_gps_tpu.kalman.timelast import (
         _filtering_elements_from_planes,
@@ -304,35 +282,6 @@ def sharded_pkf_tl(
 
     P0, Fs, Qs, H, R = lgssm_tl
     d = P0.shape[0]
-    dtype = P0.dtype
-
-    if _resolve_engine(engine) == "pallas":
-        from parallel_gps_tpu.kalman.pallas_scan import (
-            pick_strip_block,
-            strip_filter_sharded,
-        )
-
-        blk = block or pick_strip_block(d, jnp.dtype(dtype).itemsize)
-        s3 = P(None, None, axis)
-
-        def local(P0_, H_, R_, Fs_l, Qs_l, ys_l):
-            return strip_filter_sharded(
-                Fs_l, Qs_l, P0_, H_, R_, ys_l, axis,
-                block=blk, interpret=interpret,
-            )
-
-        fn = shard_map(
-            local,
-            mesh=mesh,
-            in_specs=(P(), P(), P(), s3, s3, P(axis)),
-            out_specs=(P(None, axis), s3, P()),
-            check_vma=False,
-        )
-        b_tl, C_tl, ell = fn(P0, H, R, Fs, Qs, observations.reshape(-1))
-        if not return_loglikelihood:
-            return b_tl, C_tl
-        return b_tl, C_tl, ell
-
     elems = _filtering_elements_from_planes(P0, Fs, Qs, H, R, observations)
     spec = _tl_specs(elems, axis)
     fn = shard_map(
@@ -340,7 +289,7 @@ def sharded_pkf_tl(
             sharded_associative_scan_tl,
             filtering_operator_tl,
             axis_name=axis,
-            identity=filtering_identity_tl(d, dtype),
+            identity=filtering_identity_tl(d, P0.dtype),
             reverse=False,
         ),
         mesh=mesh,
@@ -356,19 +305,9 @@ def sharded_pkf_tl(
 
 
 def sharded_pks_tl(
-    lgssm_tl,
-    b_tl: Array,
-    C_tl: Array,
-    mesh: Mesh,
-    axis: str = "time",
-    engine: str = "xla",
-    block: int | None = None,
-    interpret: bool = False,
+    lgssm_tl, b_tl: Array, C_tl: Array, mesh: Mesh, axis: str = "time"
 ):
-    """Time-axis-sharded parallel RTS smoother on time-last moments.
-
-    ``engine`` as in :func:`sharded_pkf_tl` (pallas = fused strip kernels
-    per shard, forward-only)."""
+    """Time-axis-sharded parallel RTS smoother on time-last moments."""
     from parallel_gps_tpu.kalman.timelast import (
         _smoothing_elements_from_planes,
         smoothing_identity_tl,
@@ -377,31 +316,6 @@ def sharded_pks_tl(
 
     P0, Fs, Qs, _, _ = lgssm_tl
     d = P0.shape[0]
-
-    if _resolve_engine(engine) == "pallas":
-        from parallel_gps_tpu.kalman.pallas_scan import (
-            pick_strip_block,
-            strip_smoother_sharded,
-        )
-
-        blk = block or pick_strip_block(d, jnp.dtype(P0.dtype).itemsize)
-        s3 = P(None, None, axis)
-        s2 = P(None, axis)
-
-        def local(Fs_l, Qs_l, b_l, C_l):
-            return strip_smoother_sharded(
-                Fs_l, Qs_l, b_l, C_l, axis, block=blk, interpret=interpret
-            )
-
-        fn = shard_map(
-            local,
-            mesh=mesh,
-            in_specs=(s3, s3, s2, s3),
-            out_specs=(s2, s3),
-            check_vma=False,
-        )
-        return fn(Fs, Qs, b_tl, C_tl)
-
     elems = _smoothing_elements_from_planes(Fs, Qs, b_tl, C_tl)
     spec = _tl_specs(elems, axis)
     fn = shard_map(
@@ -421,74 +335,46 @@ def sharded_pks_tl(
 
 
 def sharded_pkfs_tl(
-    lgssm_tl,
-    observations: Array,
-    mesh: Mesh,
-    axis: str = "time",
-    engine: str = "xla",
-    block: int | None = None,
-    interpret: bool = False,
+    lgssm_tl, observations: Array, mesh: Mesh, axis: str = "time"
 ):
     """Sharded filter + smoother on an LGSSMTL; returns time-last (g, L)."""
-    b_tl, C_tl = sharded_pkf_tl(
-        lgssm_tl, observations, mesh, axis,
-        engine=engine, block=block, interpret=interpret,
-    )
-    return sharded_pks_tl(
-        lgssm_tl, b_tl, C_tl, mesh, axis,
-        engine=engine, block=block, interpret=interpret,
-    )
+    b_tl, C_tl = sharded_pkf_tl(lgssm_tl, observations, mesh, axis)
+    return sharded_pks_tl(lgssm_tl, b_tl, C_tl, mesh, axis)
 
 
 # --------------------------------------------------------------------------
 # Sharded LML with Fisher-identity gradients: the distributed counterpart of
-# kalman.timelast.lml_tl.  Forward = sharded filter (fused strip kernels per
-# shard on TPU); backward = ONE sharded smoother pass + the elementwise
-# Fisher formulas (kalman/timelast.py::fisher_grads_from_smoothed), which
-# GSPMD partitions from the operand shardings.  This is what makes
-# hyperparameter gradients at N=10M run at per-shard kernel speed instead of
-# replaying ~log2(T) Kogge-Stone HBM passes through autodiff.
+# kalman.timelast.lml_tl.  Forward = sharded filter; backward = ONE sharded
+# smoother pass + the elementwise Fisher formulas
+# (kalman/timelast.py::fisher_grads_from_smoothed), which GSPMD partitions
+# from the operand shardings — instead of replaying ~log2(T) Kogge-Stone
+# passes through autodiff.
 # --------------------------------------------------------------------------
 
 
-@partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4, 5, 6))
-def sharded_lml_tl(
-    lgssm_tl,
-    observations: Array,
-    mesh: Mesh,
-    axis: str = "time",
-    engine: str = "auto",
-    block: int | None = None,
-    interpret: bool = False,
-):
+@partial(jax.custom_vjp, nondiff_argnums=(2, 3))
+def sharded_lml_tl(lgssm_tl, observations: Array, mesh: Mesh, axis: str = "time"):
     """Log marginal likelihood of a time-axis-sharded LGSSMTL (scalar,
     replicated).  Differentiable w.r.t. (lgssm_tl, observations) via the
-    Fisher identity on any engine, including the forward-only pallas one."""
+    Fisher identity."""
     _, _, ell = sharded_pkf_tl(
-        lgssm_tl, observations, mesh, axis,
-        return_loglikelihood=True, engine=engine, block=block,
-        interpret=interpret,
+        lgssm_tl, observations, mesh, axis, return_loglikelihood=True
     )
     return ell
 
 
-def _sharded_lml_fwd(lgssm_tl, observations, mesh, axis, engine, block, interpret):
+def _sharded_lml_fwd(lgssm_tl, observations, mesh, axis):
     b_tl, C_tl, ell = sharded_pkf_tl(
-        lgssm_tl, observations, mesh, axis,
-        return_loglikelihood=True, engine=engine, block=block,
-        interpret=interpret,
+        lgssm_tl, observations, mesh, axis, return_loglikelihood=True
     )
     return ell, (lgssm_tl, observations, b_tl, C_tl)
 
 
-def _sharded_lml_bwd(mesh, axis, engine, block, interpret, residuals, gbar):
+def _sharded_lml_bwd(mesh, axis, residuals, gbar):
     from parallel_gps_tpu.kalman.timelast import fisher_grads_from_smoothed
 
     lgssm_tl, observations, b_tl, C_tl = residuals
-    mhat, Phat = sharded_pks_tl(
-        lgssm_tl, b_tl, C_tl, mesh, axis, engine=engine, block=block,
-        interpret=interpret,
-    )
+    mhat, Phat = sharded_pks_tl(lgssm_tl, b_tl, C_tl, mesh, axis)
     return fisher_grads_from_smoothed(
         lgssm_tl, observations, b_tl, C_tl, mhat, Phat, gbar
     )
@@ -513,9 +399,9 @@ def sharded_batched_lml_tl(
     output); ``observations_b`` is (B, T).  Returns (B,) log-likelihoods.
 
     This is the distributed composition of BASELINE.json config 5 on the
-    TPU-native layout: per-shard local scans at time-last speed, one tiny
-    all_gather of boundary elements over ``time_axis`` per scan, batch
-    embarrassingly parallel over ``batch_axis``.
+    time-last layout: per-shard local time-last scans, one tiny all_gather
+    of boundary elements over ``time_axis`` per scan, batch embarrassingly
+    parallel over ``batch_axis``.
     """
     from parallel_gps_tpu.kalman.timelast import (
         _filtering_elements_from_planes,

@@ -23,8 +23,8 @@ class LGSSM(NamedTuple):
 
     Observation dimensionality: every reference experiment observes a SCALAR
     per step (H is a single row — pssgp/kernels/base.py, all kernels emit
-    ``H (1, d)``), and the TPU fast paths (the time-last engine and the fused
-    Pallas kernels) are specialized to that case.  The sequential and generic
+    ``H (1, d)``), and the fast path (the time-last engine) is specialized
+    to that case.  The sequential and generic
     parallel engines accept general ``H (m, d)`` / ``R (m, m)`` /
     ``ys (T, m)`` with (m, m) solves, exactly as the reference algebra is
     written (pssgp/kalman/parallel.py:26-33); pass ``engine='generic'`` for
@@ -46,12 +46,12 @@ class LGSSM(NamedTuple):
 
 
 class LGSSMTL(NamedTuple):
-    """Time-last (structure-of-arrays) LGSSM — the TPU-native layout.
+    """Time-last (structure-of-arrays) LGSSM — the fast-path layout.
 
-    Identical semantics to :class:`LGSSM` but with the time axis LAST, so T
-    rides the 128-lane vector dimension and no (T, d, d) ↔ (d, d, T)
-    relayouts are needed anywhere in the parallel engines (a single such
-    transpose costs more than the entire scan at T = 10⁶).
+    Identical semantics to :class:`LGSSM` but with the time axis LAST, so
+    every (i, j) entry is one contiguous (T,) plane and no (T, d, d) ↔
+    (d, d, T) relayouts are needed anywhere in the parallel engines (a
+    single such transpose costs more than the entire scan at T = 10⁶).
 
     Attributes:
       P0: (d, d) initial state covariance.

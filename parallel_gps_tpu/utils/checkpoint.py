@@ -19,7 +19,7 @@ import numpy as np
 def _key_paths(tree) -> list[str]:
     """Key path per leaf — a structural fingerprint that is stable across
     JAX versions (PyTreeDef repr is not: it changes with internal renames
-    and flax dataclass cosmetics, which would hard-fail valid checkpoints)."""
+    and dataclass cosmetics, which would hard-fail valid checkpoints)."""
     paths, _ = jax.tree_util.tree_flatten_with_path(tree)
     return [jax.tree_util.keystr(p) for p, _ in paths]
 
@@ -41,7 +41,7 @@ def load_pytree(path: str, like):
     ``like`` supplies the structure (its leaf values are ignored); leaf
     dtypes follow what was saved.  Structure is validated against the saved
     key paths (leaf names/positions) — a genuine mismatch raises; a
-    PyTreeDef-repr difference alone (JAX/flax version change) only warns.
+    PyTreeDef-repr difference alone (JAX version change) only warns.
     """
     if not path.endswith(".npz"):
         path = path + ".npz"
@@ -67,14 +67,14 @@ def load_pytree(path: str, like):
         elif "__treedef_repr__" in data.files:
             saved_repr = str(data["__treedef_repr__"])
             if saved_repr != repr(treedef):
-                # Legacy checkpoints: repr is not stable across JAX/flax
+                # Legacy checkpoints: repr is not stable across JAX
                 # versions, so with a matching leaf count this is a warning,
                 # not an error.
                 import warnings
 
                 warnings.warn(
                     "checkpoint treedef repr differs from the provided "
-                    "'like' pytree (leaf counts match — likely a JAX/flax "
+                    "'like' pytree (leaf counts match — likely a JAX "
                     f"version change):\n  saved: {saved_repr}\n"
                     f"  like:  {treedef!r}",
                     stacklevel=2,

@@ -1,6 +1,6 @@
 """Generate BATTERY.md — the committed manifest of a (reduced) run of the
-full experiment battery (VERDICT.md item 3 "Done" criterion: a committed
-results manifest with finite entries from an actual end-to-end run).
+full experiment battery: a results manifest with finite entries from an
+actual end-to-end run.
 
 Usage::
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Full test suite in four isolated pytest processes.
+# Full test suite in three isolated pytest processes.
 #
 # On some hosts jaxlib's XLA:CPU compiler segfaults (exit 139) when a LARGE
 # multi-device program compiles late in a long-lived process (~37-40% into
@@ -12,14 +12,10 @@
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
-python -m pytest tests/test_batched_pallas.py tests/test_blocked_scan.py \
-    tests/test_distributed.py tests/test_expm.py tests/test_fisher_vjp.py \
-    tests/test_gp_vs_kfs.py -q "$@"
-python -m pytest tests/test_kalman.py tests/test_kernels.py \
-    tests/test_model.py tests/test_model_sharded.py tests/test_multiobs.py \
-    tests/test_native_balance.py -q "$@"
-python -m pytest tests/test_pallas_dt.py tests/test_pallas_scan.py \
-    tests/test_params.py tests/test_sharded.py tests/test_sqrt.py \
-    tests/test_timelast.py tests/test_utils.py -q "$@"
-python -m pytest tests/test_model_interpret.py -q "$@"
+# Every tests/test_*.py module, split into three chunks in name order.
+mapfile -t mods < <(ls tests/test_*.py)
+chunk=$(( (${#mods[@]} + 2) / 3 ))
+for ((i = 0; i < ${#mods[@]}; i += chunk)); do
+    python -m pytest "${mods[@]:i:chunk}" -q "$@"
+done
 echo "all chunks green"

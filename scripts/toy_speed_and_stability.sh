@@ -3,7 +3,8 @@
 # wall-time + RMSE over n = 2^12..2^15, Matern32/52 + RBF(order 6, balance 10),
 # float64, all three model classes.  Device placement: the reference pins
 # PSSGP->/gpu, SSGP->/cpu, GP->/gpu; here --platform plays that role
-# (float64 auto-selects cpu, float32 runs on the TPU chip).
+# (default: the accelerator, in float32 and float64 alike; --split-devices
+# sends SSGP to the host CPU).
 set -euo pipefail
 cd "$(dirname "$0")/.."
 py=parallel_gps_tpu.experiments.toy_models.speed_and_stability

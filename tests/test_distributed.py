@@ -31,12 +31,7 @@ def _series(T, seed=0, dtype=jnp.float64):
 
 
 def test_initialize_single_process_is_noop(monkeypatch):
-    for var in (
-        "COORDINATOR_ADDRESS",
-        "JAX_COORDINATOR_ADDRESS",
-        "TPU_WORKER_HOSTNAMES",
-        "MEGASCALE_COORDINATOR_ADDRESS",
-    ):
+    for var in ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS"):
         monkeypatch.delenv(var, raising=False)
     assert initialize() == 1
 

@@ -112,8 +112,7 @@ def test_posterior(cov, val_tol, grad_tol):
 # and Periodic (seq≡par is pinned exactly in test_kalman.py, so the
 # remaining simple kernels add compile time but no coverage); the COMPOSITE
 # kernels run both engines in full, as their sequential predict path
-# (merge + reverse smoother at d = 5/6) has no other dense-oracle check
-# (VERDICT r2 missing-item 1).
+# (merge + reverse smoother at d = 5/6) has no other dense-oracle check.
 @pytest.mark.parametrize(
     "idx",
     [1, 4, 5, 6],

@@ -216,7 +216,7 @@ def test_sample_chains_chunked_matches_monolithic():
 
 
 def test_dual_averaging_nuts_recovers_gaussian():
-    """Opt-in warmup (VERDICT r2 item 8): dual averaging must adapt the NUTS
+    """Opt-in warmup: dual averaging must adapt the NUTS
     step size so the trajectory-mean Metropolis acceptance sits near the
     0.8 target, and the adapted sampler must recover a known correlated
     Gaussian's moments."""

@@ -9,6 +9,7 @@ characterize behavior, independent of implementation.
 import jax.numpy as jnp
 import numpy as np
 import numpy.testing as npt
+import pytest
 
 from parallel_gps_tpu.kernels import RBF, Periodic, Matern12, Matern32
 from parallel_gps_tpu.kernels.periodic import _offline_coeffs
@@ -183,8 +184,8 @@ def test_rbf_spectral_transitions_match_pade():
 
 
 def test_rbf_transition_coeffs_match_transitions_m1_tl():
-    """RBF build(c, dt) == transitions_m1_tl(dt) entrywise — the dt-engine
-    contract (cf. the Matérn test in test_pallas_dt.py)."""
+    """RBF build(c, dt) == transitions_m1_tl(dt) entrywise — the
+    transition_coeffs contract (cf. the parametrized test below)."""
     dts = jnp.asarray(np.random.RandomState(0).rand(37) * 0.1)
     for order in (3, 6):
         kern = RBF(1.2, 0.55, order=order)
@@ -197,3 +198,43 @@ def test_rbf_transition_coeffs_match_transitions_m1_tl():
                     rows[i][j], ref[i, j], rtol=1e-11, atol=1e-13,
                     err_msg=f"order={order}[{i},{j}]",
                 )
+
+
+def _coeff_kernels():
+    from parallel_gps_tpu.kernels import Matern52
+
+    return [
+        ("m12", Matern12(1.3, 0.7)),
+        ("m32", Matern32(1.1, 0.5)),
+        ("m52", Matern52(0.8, 0.4)),
+        ("sum_m32_m12", Matern32(1.1, 0.5) + Matern12(0.8, 0.3)),
+        ("prod_m32_m32", Matern32(1.2, 0.6) * Matern32(0.9, 0.4)),
+        ("periodic2", Periodic(1.3, 0.8, period=0.7, order=2)),
+        ("quasiperiodic",
+         Periodic(1.0, 1.0, period=0.5, order=1) * Matern12(1.0, 0.7)),
+        ("co2_shape",
+         Periodic(1.0, 1.0, period=0.5, order=1) * Matern32(0.5, 0.8)
+         + Matern32(1.0, 1.5)),
+    ]
+
+
+@pytest.mark.parametrize(
+    "name,kern", _coeff_kernels(), ids=[n for n, _ in _coeff_kernels()]
+)
+def test_transition_coeffs_match_transitions_m1_tl(name, kern):
+    """build(c, dt) == transitions_m1_tl(dt) entrywise, structural zeros
+    (None) included — the elementwise closed form a fused discretization
+    consumes must be the discretization the engines use."""
+    dts = jnp.asarray(np.random.RandomState(0).rand(37) * 0.1)
+    coeffs, build = kern.transition_coeffs()
+    rows = build(list(coeffs), dts)
+    ref = np.asarray(kern.transitions_m1_tl(dts))
+    d = kern.state_dim
+    assert len(rows) == d and all(len(r) == d for r in rows)
+    for i in range(d):
+        for j in range(d):
+            got = 0.0 if rows[i][j] is None else rows[i][j]
+            npt.assert_allclose(
+                np.broadcast_to(got, ref[i, j].shape), ref[i, j],
+                rtol=1e-11, atol=1e-13, err_msg=f"{name}[{i},{j}]",
+            )

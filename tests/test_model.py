@@ -143,10 +143,10 @@ def test_single_observation():
 
 
 def test_align_pad_invariance():
-    """Strip-alignment padding (repeated last t ⇒ dt=0 identity elements,
-    NaN observations ⇒ masked) leaves LML and predictions at real
-    positions unchanged — the invariant that lets the model layer feed
-    the fused kernels born-aligned inputs (models/ssgp.py::_align_pad)."""
+    """Shard-divisibility padding (repeated last t ⇒ dt=0 identity
+    elements, NaN observations ⇒ masked) leaves LML and predictions at real
+    positions unchanged — the invariant that lets the model layer pad the
+    time axis to the mesh (models/ssgp.py::_align_pad)."""
     from parallel_gps_tpu.models.ssgp import _align_pad
 
     rng = np.random.RandomState(3)
@@ -155,7 +155,7 @@ def test_align_pad_invariance():
     model = pgt.StateSpaceGP.create(
         (t, y), pgt.kernels.Matern32(1.0, 0.4), 0.1, parallel=True
     )
-    ts_p, ys_p = _align_pad(model.ts, model.ys, 2, align=64)
+    ts_p, ys_p = _align_pad(model.ts, model.ys, 64)
     assert ts_p.shape[0] == 128
     padded = model.replace(ts=ts_p, ys=ys_p)
 
@@ -170,36 +170,54 @@ def test_align_pad_invariance():
     np.testing.assert_allclose(np.asarray(v1), np.asarray(v0), rtol=1e-9)
 
 
-def test_fused_max_d_config_gates_dispatch(monkeypatch):
-    """config.set_fused_max_d sets the model layer's fused-kernel
-    auto-dispatch ceiling (default 8 = the kernels' Schur ceiling; 3
-    restores the conservative XLA-for-d>3 dispatch)."""
+def test_engine_dispatch(monkeypatch):
+    """One dispatch rule for LML: stable → square-root engine; mesh →
+    sharded time-last; parallel → time-last; else sequential."""
     import jax
 
-    from parallel_gps_tpu import config
-    from parallel_gps_tpu.kernels import RBF
+    from parallel_gps_tpu.kalman import sqrt, timelast
+    from parallel_gps_tpu.models import ssgp
+    from parallel_gps_tpu.parallel import sharded
+    from parallel_gps_tpu.parallel.sharded import make_time_mesh
 
-    t = np.sort(np.random.RandomState(0).rand(32))
+    called = []
+
+    def spy(name):
+        def f(*args, **kwargs):
+            called.append(name)
+            return (None, None, jnp.zeros(())) if name == "kf" else jnp.zeros(())
+
+        return f
+
+    monkeypatch.setattr(sqrt, "sqrt_lml_kernel", spy("sqrt"))
+    monkeypatch.setattr(sharded, "sharded_lml_tl", spy("sharded"))
+    monkeypatch.setattr(timelast, "lml_tl", spy("timelast"))
+    monkeypatch.setattr(ssgp, "kf", spy("kf"))
+    t = np.sort(np.random.RandomState(0).rand(16))
     y = np.sin(2 * np.pi * t)
-    m6 = pgt.StateSpaceGP.create(
-        (t, y), RBF(1.0, 0.3, order=6, balancing_iter=3), 0.1, parallel=True
+    k = pgt.kernels.Matern32(1.0, 0.3)
+    cases = [
+        (dict(stable=True), "sqrt"),
+        (dict(mesh=make_time_mesh(4)), "sharded"),
+        (dict(parallel=True), "timelast"),
+        (dict(parallel=False), "kf"),
+    ]
+    with jax.disable_jit():
+        for kwargs, want in cases:
+            called.clear()
+            pgt.StateSpaceGP.create((t, y), k, 0.1, **kwargs).log_marginal_likelihood()
+            assert called == [want], (kwargs, called)
+
+
+@pytest.mark.parametrize("n", [1, 7, 64])
+def test_argsort_and_inverse_permutation_match_numpy(n):
+    """predict_f's int32 argsort (stable on ties) and its scatter-based
+    inverse permutation equal numpy's argsort."""
+    from parallel_gps_tpu.models.ssgp import _argsort, _inverse_permutation
+
+    x = np.random.RandomState(n).randint(0, 5, size=n).astype(float)
+    order = _argsort(jnp.asarray(x))
+    np.testing.assert_array_equal(np.asarray(order), np.argsort(x, kind="stable"))
+    np.testing.assert_array_equal(
+        np.asarray(_inverse_permutation(order)), np.argsort(np.asarray(order))
     )
-    m3 = pgt.StateSpaceGP.create(
-        (t, y), pgt.kernels.Matern32(1.0, 0.3), 0.1, parallel=True
-    )
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert m3._fused_engine_ok()
-    assert m6._fused_engine_ok()  # d=6 <= default ceiling 8
-    monkeypatch.setattr(config, "FUSED_MAX_D", 3)
-    assert not m6._fused_engine_ok()
-    monkeypatch.setattr(config, "FUSED_MAX_D", 8)
-    assert m6._fused_engine_ok()
-    monkeypatch.setattr(config, "FUSED_MAX_D", 99)  # kernels cap at 8
-    d18 = pgt.StateSpaceGP.create(
-        (t, y),
-        pgt.kernels.Periodic(1.0, 0.3, period=1.0, order=4)
-        * pgt.kernels.Matern32(1.0, 0.3),
-        0.1,
-        parallel=True,
-    )
-    assert not d18._fused_engine_ok()

@@ -1,4 +1,4 @@
-"""Distributed engines through the MODEL API (VERDICT r3 item 2).
+"""Distributed engines through the MODEL API.
 
 ``StateSpaceGP.create(..., mesh=...)`` must route LML (and its gradients,
 via the sharded Fisher-identity VJP) and predict_f through the time-axis-
@@ -75,7 +75,7 @@ def test_model_predict_sharded_matches_single(data, mesh):
 def test_model_fit_adam_sharded(data, mesh):
     """End-to-end distributed training through the standard loop: fit_adam
     consumes the model's LML, so the meshed model trains on the sharded
-    Fisher-VJP path with no loop changes (VERDICT r3 item 6)."""
+    Fisher-VJP path with no loop changes."""
     single, sharded = _models(data, mesh)
     f_s, _ = fit_adam(single, n_iters=30, learning_rate=0.05)
     f_m, _ = fit_adam(sharded, n_iters=30, learning_rate=0.05)
@@ -90,7 +90,7 @@ def test_model_fit_adam_sharded(data, mesh):
 def test_model_mcmc_sharded_matches_single(data, mesh):
     """A short HMC chain through the meshed model: run_one_mcmc consumes the
     model's LML/grads (sharded Fisher VJP), so sampling distributes with no
-    driver changes (VERDICT r3 item 6).  Same seed + f64 + exact two-level
+    driver changes.  Same seed + f64 + exact two-level
     combine => the sharded chain reproduces the single-device chain."""
     from parallel_gps_tpu.experiments.common import run_one_mcmc
 

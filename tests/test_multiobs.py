@@ -135,5 +135,5 @@ def test_m2_explicit_fast_engines_raise(m2_problem):
     lg = _as_lgssm(P0, Fs, Qs, H, R)
     with pytest.raises(ValueError, match="scalar observations"):
         pkf(lg, jnp.asarray(ys), engine="timelast")
-    with pytest.raises(ValueError, match="scalar observations"):
+    with pytest.raises(ValueError, match="engine must be one of"):
         pkf(lg, jnp.asarray(ys), engine="pallas")

@@ -195,8 +195,7 @@ def test_sharded_tl_gradients_match_single_device():
 
 
 # --------------------------------------------------------------------------
-# Fused strip kernels as the per-shard local scan (engine="pallas",
-# interpret mode on CPU) + the sharded Fisher-VJP LML.
+# Sharded filter + smoother and the sharded Fisher-VJP LML at awkward sizes.
 # --------------------------------------------------------------------------
 
 from parallel_gps_tpu.kalman.timelast import lml_tl  # noqa: E402
@@ -204,67 +203,50 @@ from parallel_gps_tpu.parallel.sharded import sharded_lml_tl  # noqa: E402
 
 
 def test_sharded_pallas_engine_matches_single_device():
-    """strip_filter_sharded/strip_smoother_sharded under shard_map: the
-    two-level scan with the cross-shard prefix folded into the strip apply
-    pass must match the single-device XLA engine (f64, NaNs included).
-    Tiny blocks: CPU interpret cost explodes with unrolled body size."""
+    """The time-last sharded engine (the only per-shard engine) on a fresh
+    series: filter moments, LML and the smoothed moments must match the
+    single-device engine (f64, NaNs included)."""
     mesh = make_time_mesh()
     ssm, ys, _ = _tl_setup(T=512, seed=21)
     b1, C1, ell1 = pkf_from_tl(ssm, ys, True)
     g1, L1 = pks_from_tl(ssm, b1, C1)
     b2, C2, ell2 = jax.jit(
-        lambda s, o: sharded_pkf_tl(
-            s, o, mesh, return_loglikelihood=True,
-            engine="pallas", block=16, interpret=True,
-        )
+        lambda s, o: sharded_pkf_tl(s, o, mesh, return_loglikelihood=True)
     )(ssm, ys)
     npt.assert_allclose(b2, b1, rtol=1e-9, atol=1e-11)
     npt.assert_allclose(C2, C1, rtol=1e-9, atol=1e-11)
     npt.assert_allclose(float(ell2), float(ell1), rtol=1e-11)
-    g2, L2 = jax.jit(
-        lambda s, o: sharded_pkfs_tl(
-            s, o, mesh, engine="pallas", block=16, interpret=True
-        )
-    )(ssm, ys)
+    g2, L2 = jax.jit(lambda s, o: sharded_pkfs_tl(s, o, mesh))(ssm, ys)
     npt.assert_allclose(g2, g1, rtol=1e-8, atol=1e-10)
     npt.assert_allclose(L2, L1, rtol=1e-8, atol=1e-10)
 
 
 def test_sharded_pallas_engine_uneven_shard_padding():
-    """T/P = 48 with block=16 front-pads whole strips inside each shard on
-    the smoother leg — the shard totals must be read at the first REAL
-    element (identity padding never reaches the cross-shard combine)."""
+    """T = 380 is not a multiple of the 8 shards: padding with exact no-op
+    steps (distributed.pad_time_axis) must leave the smoothed moments at
+    every real step equal to the single-device engine's."""
+    from parallel_gps_tpu.parallel.distributed import pad_time_axis
+
     mesh = make_time_mesh()
-    ssm, ys, _ = _tl_setup(T=384, seed=23)
+    ssm, ys, _ = _tl_setup(T=380, seed=23)
     b1, C1 = pkf_from_tl(ssm, ys)
     g1, L1 = pks_from_tl(ssm, b1, C1)
-    g2, L2 = jax.jit(
-        lambda s, o: sharded_pkfs_tl(
-            s, o, mesh, engine="pallas", block=16, interpret=True
-        )
-    )(ssm, ys)
-    npt.assert_allclose(g2, g1, rtol=1e-8, atol=1e-10)
-    npt.assert_allclose(L2, L1, rtol=1e-8, atol=1e-10)
+    ssm_p, ys_p, T = pad_time_axis(ssm, ys, mesh.shape["time"])
+    assert ys_p.shape[0] == 384 and T == 380
+    g2, L2 = jax.jit(lambda s, o: sharded_pkfs_tl(s, o, mesh))(ssm_p, ys_p)
+    npt.assert_allclose(g2[:, :T], g1, rtol=1e-8, atol=1e-10)
+    npt.assert_allclose(L2[:, :, :T], L1, rtol=1e-8, atol=1e-10)
 
 
 def test_sharded_lml_fisher_vjp_matches_single_device():
     """sharded_lml_tl: value and hyperparameter gradients (Fisher identity,
-    one sharded smoother backward) vs the single-device lml_tl, on both the
-    XLA and the fused-strip engines."""
+    one sharded smoother backward) vs the single-device lml_tl."""
     mesh = make_time_mesh()
     ssm, ys, _ = _tl_setup(T=512, seed=29)
-    v_ref, g_ref = jax.value_and_grad(lambda s: lml_tl(s, ys, False))(ssm)
-    for engine, block, interpret in (
-        ("xla", None, False),
-        ("pallas", 16, True),
-    ):
-        v, g = jax.jit(
-            jax.value_and_grad(
-                lambda s, e=engine, b=block, i=interpret: sharded_lml_tl(
-                    s, ys, mesh, "time", e, b, i
-                )
-            )
-        )(ssm)
-        npt.assert_allclose(float(v), float(v_ref), rtol=1e-12)
-        for ga, gb in zip(jax.tree.leaves(g), jax.tree.leaves(g_ref)):
-            npt.assert_allclose(ga, gb, rtol=1e-7, atol=1e-10)
+    v_ref, g_ref = jax.value_and_grad(lambda s: lml_tl(s, ys))(ssm)
+    v, g = jax.jit(
+        jax.value_and_grad(lambda s: sharded_lml_tl(s, ys, mesh, "time"))
+    )(ssm)
+    npt.assert_allclose(float(v), float(v_ref), rtol=1e-12)
+    for ga, gb in zip(jax.tree.leaves(g), jax.tree.leaves(g_ref)):
+        npt.assert_allclose(ga, gb, rtol=1e-7, atol=1e-10)

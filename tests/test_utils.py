@@ -51,8 +51,9 @@ def test_timed_blocks_on_sync():
 
 def test_split_device_model_placement():
     """--split-devices protocol: ssgp pins to the host CPU device, pssgp/gp
-    keep default placement; float64 collapses the split (the whole process
-    is CPU there, like the reference's f64 runs).  Reference study maps
+    keep default placement, in float32 and float64 alike (the accelerator
+    runs float64 natively); only --platform cpu collapses the split.
+    Reference study maps
     GP/SSGP/PSSGP to distinct devices in ONE process
     (pssgp/experiments/toy_models/speed_and_stability.py:71-95)."""
     import jax
@@ -63,7 +64,8 @@ def test_split_device_model_placement():
     assert C.resolve_model_device("ssgp", None, "float32") == cpu0
     assert C.resolve_model_device("pssgp", None, "float32") is None
     assert C.resolve_model_device("gp", None, "float32") is None
-    assert C.resolve_model_device("ssgp", None, "float64") is None
+    assert C.resolve_model_device("ssgp", None, "float64") == cpu0
+    assert C.resolve_model_device("pssgp", None, "float64") is None
     assert C.resolve_model_device("ssgp", "cpu", "float32") is None
 
     t = np.sort(np.random.RandomState(0).rand(64))
